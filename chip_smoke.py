@@ -7,7 +7,9 @@ card.  Run from the repository root:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: name and power limit (``nvidia-smi``);
-2. build: ``nvcc`` builds ``src/repro_torch/csrc/blur.cu`` for ``sm_90a``;
+2. build: ``nvcc`` builds every ``src/repro_torch/csrc/*.cu`` (blur, flash
+   attention, decode attention) for ``sm_90a``, one process per source, all
+   at once, and prints each kernel's register and spill lines;
 3. kernel vs plain version on the card: median (bitwise) and gaussian
    (max abs difference <= 1e-6) on a [34, 4098] and a [34, 130] row block,
    then a whole 3-iteration median image run through the task code;
@@ -22,7 +24,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel, its plain version and (gaussian) one ``conv2d`` call, beside
    the memory bound; then the main path's workload once more without the
    injected slowdown, end to end, and the host<->device copies one task
-   pays outside its chunks.
+   pays outside its chunks;
+6. flash check: the flash-attention kernel against its plain version at the
+   serving prefill shape (q [4, 32, 16, 128], k/v [4, 8, 128, 128] strided
+   as the prefill passes them), q_offset 0 / 64 / 112, f32 (max abs
+   difference <= 2e-5) and bf16 (<= 2e-2);
+7. decode check: the paged decode kernel against its plain version at
+   q [8, 32, 1, 128], pools [65, 16, 8, 128], tables [8, 8], per-row
+   positions including 0, and the contiguous entry on a ring that wrapped
+   (<= 2e-5); then paged against gather-plus-contiguous, bitwise;
+8. token serving, the attention LM's main path: ``repro_torch.Client(
+   n_regions=2, serving={"lm": "attention", ...})`` on cuda:0 at Qwen3-8B's
+   attention widths (d_model 4096, vocab 151936, 32 heads, 8 kv heads,
+   head dim 128; one attention layer with random weights from seed 7, not
+   Qwen3 itself), prefills pinned to region 0 and decode to region 1.
+   16 sequences (prompts of 8-96 tokens, 8-32 new tokens, from seed 0);
+   every 3rd decode round is preempted at its 2nd chunk through the
+   region's ``on_chunk`` hook.  Every stream must equal
+   ``attention_oracle_stream`` replayed on the card with the LM's weights,
+   at least one round must have been preempted, and the launch counters,
+   zeroed just before, must read 8 flash launches per prefill task and 8
+   decode launches per decode round.  The same traffic then runs twice
+   more, warm and under ``torch.profiler`` (device time by kernel over the
+   serving window), and must stream the same tokens;
+9. attention times at those shapes: device time (``torch.profiler``) and
+   CUDA-event time per launch for each kernel, its plain version and one
+   ``scaled_dot_product_attention`` call (explicit boolean mask, GQA) as
+   the yardstick, beside the bound from bytes and FLOPs.
 
 The last three lines of standard output are the kernel JSON record, the
 card line, and ``{"ok": true, "device": {...}}``.  The script imports
@@ -52,6 +80,22 @@ OPS_PER_PIXEL = {"median": 72, "gaussian": 17}  # 36 min/max exchanges; 9 mul + 
 REPLACES = {"median": "src/repro/kernels/blur/kernel.py:44",
             "gaussian": "src/repro/kernels/blur/kernel.py:50"}
 TIMEOUT_S = 300
+LIBRARIES = ("blur", "flash_attention", "decode_attention")
+
+# the attention LM at Qwen3-8B's attention widths (src/repro/configs/qwen3_8b.py)
+SERVING = {"lm": "attention", "d_model": 4096, "vocab_size": 151936,
+           "attn_heads": 32, "attn_kv_heads": 8, "attn_head_dim": 128,
+           "kv_block_size": 16, "max_ctx": 128, "weights_seed": 7,
+           "max_slots": 8, "round_tokens": 8, "prefill_batch": 4,
+           "prefill_regions": (0,), "decode_regions": (1,)}
+N_SEQS = 16
+SERVE_CHUNK_BUDGET = 2     # 4 chunks per prefill task and per decode round
+PREEMPT_EVERY = 3          # every 3rd decode round, at its 2nd chunk
+F32_TOL, BF16_TOL = 2e-5, 2e-2
+FLASH_OFFSETS = (0, 64, 112)
+REPLACES_ATTN = {
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:24",
+    "decode_attention": "src/repro/kernels/decode_attention/kernel.py:22"}
 
 
 def log(msg: str):
@@ -83,23 +127,27 @@ def cuda_time_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 3) -> float:
+def device_ms(fn, reps: int = 3, attempts: int = 3) -> float:
     """Device time of one ``fn()`` in ms: every kernel's duration in the
     window, from ``torch.profiler`` (CUDA activity only), averaged over
-    ``reps`` calls after a warm-up.  0.0 when the profiler saw no device
-    activity."""
+    ``reps`` calls after a warm-up.  A window in which the profiler saw no
+    device activity is profiled again, up to ``attempts`` times; 0.0 if it
+    never saw any."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                   for e in prof.key_averages())
-    return total_us / 1e3 / reps
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(getattr(e, "self_device_time_total", 0.0)
+                       for e in prof.key_averages())
+        if total_us > 0:
+            return total_us / 1e3 / reps
+    return 0.0
 
 
 def check(kind: str, got, want) -> float:
@@ -179,6 +227,369 @@ def log_serve(tag: str, tasks, urgent, rep, wall_s: float, slowdown_s: float):
         f"{rep['dispatch_stall_s']:.6f}")
 
 
+def serving_traffic():
+    """16 sequences from seed 0: prompts of 8-96 tokens, 8-32 new tokens,
+    with prompt + new - 1 <= max_ctx (every sequence fits its pages)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    seqs = []
+    for _ in range(N_SEQS):
+        n = int(rng.integers(8, 97))
+        new = int(rng.integers(8, 33))
+        new = min(new, SERVING["max_ctx"] + 1 - n)
+        seqs.append(([int(t) for t in rng.integers(0, SERVING["vocab_size"],
+                                                     size=n)], new))
+    return seqs
+
+
+def serve_attention(traffic, trace: bool = False):
+    """The main path of token serving: ``Client.stream`` on cuda:0 through
+    both attention kernels, with every 3rd decode round preempted at its
+    2nd chunk.  Launch counters are zeroed just before the sequences are
+    submitted and read just after the last one finished.  Returns a dict:
+    the streams, the serving and scheduler reports, the launches, the LM's
+    weights, the seconds to build the weights on the host and to upload
+    them, the peak device memory in GB, and with ``trace`` the device time
+    by kernel name from ``torch.profiler`` over the serving window."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.serving.attention import AttentionParams, build_weights
+
+    p = AttentionParams(
+        d_model=SERVING["d_model"], vocab=SERVING["vocab_size"],
+        n_heads=SERVING["attn_heads"], kv_heads=SERVING["attn_kv_heads"],
+        head_dim=SERVING["attn_head_dim"],
+        block_size=SERVING["kv_block_size"], max_ctx=SERVING["max_ctx"],
+        seed=SERVING["weights_seed"])
+    t0 = time.perf_counter()
+    build_weights(p)          # cached: the serving LM uploads this array
+    build_s = time.perf_counter() - t0
+    lock = threading.Lock()
+    rounds, chunks, fired = [], {}, set()
+
+    def on_chunk(region, task):
+        if task.phase != "decode":
+            return
+        with lock:
+            if task.tid not in chunks:
+                rounds.append(task.tid)
+                chunks[task.tid] = 0
+            chunks[task.tid] += 1
+            nth = rounds.index(task.tid) + 1
+            if (nth % PREEMPT_EVERY == 1 and chunks[task.tid] == 2
+                    and task.tid not in fired):
+                fired.add(task.tid)
+                region.request_preempt()
+
+    torch.cuda.reset_peak_memory_stats()
+    client = repro_torch.Client(n_regions=2, chunk_budget=SERVE_CHUNK_BUDGET,
+                                serving=SERVING)
+    try:
+        for r in client.shell.regions:
+            r.on_chunk = on_chunk
+        t0 = time.perf_counter()
+        engine = client.serving          # uploads the weights once
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        prof = (profile(activities=[ProfilerActivity.CUDA]) if trace
+                else contextlib.nullcontext())
+        FK.LAUNCHES.reset()
+        DK.LAUNCHES.reset()
+        with prof:
+            handles = [client.stream(prompt, max_new_tokens=new)
+                       for prompt, new in traffic]
+            streams = [h.result(timeout=TIMEOUT_S) for h in handles]
+            torch.cuda.synchronize()
+        launches = {"flash_attention": FK.LAUNCHES.total(),
+                    "decode_attention": DK.LAUNCHES.total()}
+        run = {"streams": streams, "launches": launches,
+               "weights": engine.lm.weights, "build_s": build_s,
+               "upload_s": upload_s, "serving": client.serving_report(),
+               "scheduler": client.report(),
+               "by_kernel": ({e.key: e.self_device_time_total / 1e3
+                              for e in prof.key_averages()
+                              if e.self_device_time_total > 0}
+                             if trace else None)}
+    finally:
+        client.shutdown()
+    run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return run
+
+
+def log_serving(tag: str, run: dict, want_launches=None):
+    srep, rep, weights = run["serving"], run["scheduler"], run["weights"]
+    log(f"[{tag}] {srep['n_finished']}/{N_SEQS} sequences, "
+        f"{srep['tokens_out']} tokens in {srep['wall_s']:.3f} s: "
+        f"{srep['tokens_per_s']:.3f} tokens/s; TTFT p50 "
+        f"{srep['ttft_p50_s'] * 1e3:.3f} ms, p99 "
+        f"{srep['ttft_p99_s'] * 1e3:.3f} ms; prefill tasks "
+        f"{srep['prefill_tasks']}, decode rounds {srep['decode_rounds']}, "
+        f"decode preemptions {srep['decode_preemptions']}, scheduler "
+        f"preemptions {rep['preemptions']}, host spills avoided "
+        f"{rep['host_spills_avoided']}")
+    log(f"[{tag}] weights {tuple(weights.shape)} f32 "
+        f"({weights.numel() * 4 / 1e9:.3f} GB): host build "
+        f"{run['build_s']:.3f} s (cached after the first pass), upload "
+        f"{run['upload_s']:.3f} s; peak device memory {run['peak_gb']:.3f} "
+        f"GB; kv {srep['kv']}")
+    log(f"[{tag}] launches {run['launches']} (expected "
+        f"{want_launches or 'as the first pass'}); kernel_mode "
+        f"{[r['kernel_mode'] for r in rep['reconfig']['regions'].values()]}")
+
+
+def attention_phases(dev, card: str) -> list:
+    """Phases 6-9; returns the two kernel records."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.serving.attention import (AttentionParams,
+                                               attention_oracle_stream)
+
+    rng = np.random.default_rng(1)
+    H, KV, hd, BS = (SERVING["attn_heads"], SERVING["attn_kv_heads"],
+                     SERVING["attn_head_dim"], SERVING["kv_block_size"])
+    PB, C, S = SERVING["prefill_batch"], BS, SERVING["max_ctx"]
+    scale = 1.0 / hd ** 0.5
+
+    def randn(*shape):
+        return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                            device=dev)
+
+    # 6. flash check, with q and the cache laid out as the prefill has them
+    q = randn(PB, C, H, hd).transpose(1, 2)
+    k_new, v_new = randn(PB, S, KV, hd), randn(PB, S, KV, hd)
+    k, v = k_new.transpose(1, 2), v_new.transpose(1, 2)
+    flash_err = 0.0
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+        for off in FLASH_OFFSETS:
+            got = FK.launch(qd, kd, vd, causal=True, window=None,
+                            q_offset=off, scale=scale)
+            torch.cuda.synchronize()
+            want = FR.flash_attention(qd, kd, vd, causal=True, q_offset=off,
+                                      scale=scale)
+            err = float((got.float() - want.float()).abs().max())
+            log(f"[flash] {str(dtype)[6:]} q_offset {off}: max_abs_err "
+                f"{err:.3e} (tolerance {tol:g})")
+            if not err <= tol:
+                raise AssertionError(f"flash {dtype} q_offset {off}: {err}")
+            if dtype == torch.float32:
+                flash_err = max(flash_err, err)
+
+    # 7. decode check
+    B, T_blk = SERVING["max_slots"], SERVING["max_ctx"] // BS
+    NB = B * T_blk + 1
+    k_pool, v_pool = randn(NB, BS, KV, hd), randn(NB, BS, KV, hd)
+    tables = torch.tensor(rng.permutation(np.arange(1, NB)).reshape(
+        B, T_blk).astype(np.int32), device=dev)
+    qs = randn(B, H, 1, hd)
+    pos = torch.tensor([0, 1, 17, 40, 64, 100, 127, 128], dtype=torch.int32,
+                       device=dev)
+    got = DK.launch_paged(qs, k_pool, v_pool, tables, pos, window=None,
+                          scale=scale)
+    torch.cuda.synchronize()
+    want = DR.paged_decode_attention(qs, k_pool, v_pool, tables, pos,
+                                     scale=scale)
+    decode_err = float((got - want).abs().max())
+    log(f"[decode] paged, pos {pos.tolist()}: max_abs_err {decode_err:.3e} "
+        f"(tolerance {F32_TOL:g}); pos-0 row all zero: "
+        f"{bool((got[0] == 0).all())}")
+    if not (decode_err <= F32_TOL and bool((got[0] == 0).all())):
+        raise AssertionError(f"paged decode: max_abs_err {decode_err}")
+    k_lin = DR.gather_kv_pages(k_pool, tables)
+    v_lin = DR.gather_kv_pages(v_pool, tables)
+    ring = torch.tensor([0, 5, 128, 129, 200, 255, 256, 1000],
+                        dtype=torch.int32, device=dev)
+    got = DK.launch(qs, k_lin, v_lin, ring, window=None, scale=scale)
+    want = DR.decode_attention(qs, k_lin, v_lin, ring, scale=scale)
+    ring_err = float((got - want).abs().max())
+    log(f"[decode] contiguous ring, pos {ring.tolist()}: max_abs_err "
+        f"{ring_err:.3e}")
+    if not ring_err <= F32_TOL:
+        raise AssertionError(f"ring decode: max_abs_err {ring_err}")
+    decode_err = max(decode_err, ring_err)
+    paged = DK.launch_paged(qs, k_pool, v_pool, tables, pos, window=None,
+                            scale=scale)
+    dense = DK.launch(qs, k_lin, v_lin, pos, window=None, scale=scale)
+    torch.cuda.synchronize()
+    if not torch.equal(paged, dense):
+        raise AssertionError("paged decode is not bitwise equal to "
+                             "gather-plus-contiguous")
+    log("[decode] paged == gather-plus-contiguous, bitwise")
+
+    # 8. token serving at full width
+    traffic = serving_traffic()
+    run = serve_attention(traffic)
+    srep, streams, launches = run["serving"], run["streams"], run["launches"]
+    want_launches = {"flash_attention": S // C * srep["prefill_tasks"],
+                     "decode_attention": SERVING["round_tokens"]
+                     * srep["decode_rounds"]}
+    log_serving("serve", run, want_launches)
+    if srep["n_finished"] != N_SEQS or srep["stranded_sequences"]:
+        raise AssertionError(f"serving finished {srep['n_finished']} of "
+                             f"{N_SEQS}")
+    if srep["decode_preemptions"] < 1:
+        raise AssertionError("no decode round was preempted")
+    if launches != want_launches:
+        raise AssertionError(f"launches {launches} != {want_launches}")
+    p = AttentionParams(
+        d_model=SERVING["d_model"], vocab=SERVING["vocab_size"], n_heads=H,
+        kv_heads=KV, head_dim=hd, block_size=BS, max_ctx=S,
+        seed=SERVING["weights_seed"])
+    t0 = time.perf_counter()
+    for i, ((prompt, new), got) in enumerate(zip(traffic, streams)):
+        want = attention_oracle_stream(
+            prompt, new, p, max_slots=SERVING["max_slots"],
+            round_tokens=SERVING["round_tokens"],
+            prefill_batch=SERVING["prefill_batch"], weights=run["weights"])
+        if got != want:
+            raise AssertionError(f"sequence {i} (prompt {len(prompt)}, "
+                                 f"{new} new): {got} != oracle {want}")
+    log(f"[serve] all {N_SEQS} streams equal attention_oracle_stream "
+        f"token for token ({time.perf_counter() - t0:.3f} s to replay)")
+    del run
+    # the same traffic once more, warm (kernels loaded, cuBLAS initialised),
+    # and once under torch.profiler: where the device time of serving goes
+    warm = serve_attention(traffic)
+    log_serving("serve, warm", warm)
+    traced = serve_attention(traffic, trace=True)
+    busy_ms = sum(traced["by_kernel"].values())
+    wall_ms = traced["serving"]["wall_s"] * 1e3
+    log(f"[serve, traced] wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} "
+        f"ms (busy share {busy_ms / wall_ms:.4f}; kernels on two streams "
+        f"may overlap); top kernels by device time:")
+    for key, ms in sorted(traced["by_kernel"].items(),
+                          key=lambda kv: -kv[1])[:10]:
+        log(f"[serve, traced]   {ms:10.3f} ms  {key[:110]}")
+    if warm["streams"] != streams or traced["streams"] != streams:
+        raise AssertionError("a later pass streamed other tokens")
+    del warm, traced
+
+    # 9. times at the serving shapes
+    records = []
+    f32 = 4
+    q_bytes = PB * H * C * hd * f32
+
+    def flash_kernel():
+        for off in range(0, S, C):
+            FK.launch(q, k, v, causal=True, window=None, q_offset=off,
+                      scale=scale)
+
+    def flash_plain():
+        for off in range(0, S, C):
+            FR.flash_attention(q, k, v, causal=True, q_offset=off,
+                               scale=scale)
+
+    masks = [(torch.arange(S, device=dev)[None, :]
+              <= off + torch.arange(C, device=dev)[:, None])
+             for off in range(0, S, C)]
+
+    def flash_library():
+        for mask in masks:
+            F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                           scale=scale, enable_gqa=True)
+
+    lib_err = float((F.scaled_dot_product_attention(
+        q, k, v, attn_mask=masks[-1], scale=scale, enable_gqa=True)
+        - FK.launch(q, k, v, causal=True, window=None, q_offset=S - C,
+                    scale=scale)).abs().max())
+    # bound per launch from what its data needs: q and o once, the K/V rows
+    # up to the causal limit, 4 FLOP per (query, key, head-dim) pair kept
+    bounds = []
+    for off in range(0, S, C):
+        keys = off + C
+        nbytes = 2 * q_bytes + 2 * PB * KV * keys * hd * f32
+        pairs = sum(off + i + 1 for i in range(C))
+        flops = 4 * PB * H * pairs * hd
+        bounds.append((nbytes / HBM_BYTES_PER_S * 1e3,
+                       flops / F32_OPS_PER_S * 1e3))
+    records.append(time_kernel(
+        "flash_attention", S // C, flash_kernel, flash_plain, flash_library,
+        bounds, launches["flash_attention"], flash_err,
+        f"{lib_err:.3e} max diff vs kernel at q_offset {S - C}"))
+
+    dense_mask = ((torch.arange(T_blk * BS, device=dev)[None, :]
+                   < pos[:, None].long())[:, None, None, :])
+
+    def decode_kernel():
+        DK.launch_paged(qs, k_pool, v_pool, tables, pos, window=None,
+                        scale=scale)
+
+    def decode_plain():
+        DR.paged_decode_attention(qs, k_pool, v_pool, tables, pos,
+                                  scale=scale)
+
+    def decode_library():
+        F.scaled_dot_product_attention(qs, k_lin, v_lin, attn_mask=dense_mask,
+                                       scale=scale, enable_gqa=True)
+
+    live = pos > 0
+    lib_err = float((F.scaled_dot_product_attention(
+        qs, k_lin, v_lin, attn_mask=dense_mask, scale=scale,
+        enable_gqa=True)[live] - paged[live]).abs().max())
+    valid_keys = int(pos.clamp(max=T_blk * BS).sum())
+    nbytes = (2 * B * H * hd * f32 + tables.numel() * 4 + B * 4
+              + 2 * valid_keys * KV * hd * f32)
+    flops = 4 * H * valid_keys * hd
+    records.append(time_kernel(
+        "decode_attention", 1, decode_kernel, decode_plain, decode_library,
+        [(nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_OPS_PER_S * 1e3)],
+        launches["decode_attention"], decode_err,
+        f"{lib_err:.3e} max diff vs kernel on live rows (library on the "
+        f"gathered dense cache)"))
+    log(f"[time] attention bounds: {HBM_BYTES_PER_S / 1e12:g} TB/s, "
+        f"{F32_OPS_PER_S / 1e12:g} TFLOP/s f32 (H100 SXM data sheet); card "
+        f"{card}")
+    return records
+
+
+def time_kernel(name, n_launch, kernel, plain, library, bounds, launches,
+                err, lib_note) -> dict:
+    """Device time (``torch.profiler``) and CUDA-event time per launch of
+    ``kernel`` (``n_launch`` launches per call), its plain version and the
+    library yardstick; the bound is the mean over the launches of the
+    larger of the bytes and the FLOPs times."""
+    dev_ms = {"kernel": device_ms(kernel), "plain": device_ms(plain),
+              "library": device_ms(library)}
+    wall_ms = {"kernel": cuda_time_ms(kernel, reps=50),
+               "plain": cuda_time_ms(plain, reps=10),
+               "library": cuda_time_ms(library, reps=50)}
+    for arm in dev_ms:
+        if dev_ms[arm] <= 0.0:
+            log(f"[time] {name} {arm}: profiler saw no device time; using "
+                f"the CUDA-event time")
+            dev_ms[arm] = wall_ms[arm]
+        log(f"[time] {name} {arm}: device {dev_ms[arm] / n_launch:.6f} ms "
+            f"per launch; wall (CUDA events, back-to-back) "
+            f"{wall_ms[arm] / n_launch:.6f} ms per launch")
+    bytes_ms = sum(b for b, _ in bounds) / len(bounds)
+    ops_ms = sum(o for _, o in bounds) / len(bounds)
+    bound_ms = sum(max(b, o) for b, o in bounds) / len(bounds)
+    rec = {"name": name, "route": "cuda",
+           "source": f"src/repro_torch/csrc/{name}.cu",
+           "replaces": REPLACES_ATTN[name], "launches": launches,
+           "max_abs_err": err, "ms": dev_ms["kernel"] / n_launch,
+           "plain_ms": dev_ms["plain"] / n_launch, "bound_ms": bound_ms,
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": dev_ms["library"] / n_launch}
+    log(f"[time] {name}: kernel {rec['ms']:.6f} ms device per launch; bound "
+        f"{bound_ms:.6f} ms (bytes {bytes_ms:.6f}, FLOPs {ops_ms:.6f}); "
+        f"library {rec['library_ms']:.6f} ms ({lib_note})")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -213,12 +624,15 @@ def main() -> int:
 
     # 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    native.load_library("blur")
-    log(f"[build] blur.cu -> {native.build_info['blur']['path']} in "
+    native.load_libraries(LIBRARIES)
+    log(f"[build] {', '.join(n + '.cu' for n in LIBRARIES)} in parallel: "
         f"{time.perf_counter() - t0:.3f} s")
-    for line in native.build_info["blur"]["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    for lib in LIBRARIES:
+        info = native.build_info[lib]
+        log(f"[build] {lib}.cu -> {info['path']} ({info['seconds']:.3f} s)")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {lib}: {line.strip()}")
 
     # 3. kernel vs plain version --------------------------------------------
     errs = {}
@@ -357,6 +771,8 @@ def main() -> int:
         f"memory): upload {up_ms:.3f} ms ({mb / up_ms:.3f} GB/s), result "
         f"copy {down_ms:.3f} ms ({mb / down_ms:.3f} GB/s); kernel device "
         f"time per 3-iteration task {records[0]['ms'] * 3 * n_rb:.3f} ms")
+
+    records += attention_phases(dev, card)
 
     log(json.dumps({"kernels": records}))
     log(card)

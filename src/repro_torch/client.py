@@ -4,12 +4,16 @@
         h = client.launch("MedianBlur", (img, out), H=128, W=128, iters=2)
         ping, pong = h.result(timeout=60)
 
-    repro_torch.Client(n_regions=2, device="cpu")        # plain kernels
+        s = client.stream([5, 9, 2], max_new_tokens=8)    # token serving
+        print(list(s))                                    # iterate tokens
 
-``submit(task) -> TaskHandle`` and ``launch(kernel, hittiles, ...)`` bind
-to one shell's scheduler.  Token serving (``stream``), multi-shell
-clusters (``n_shells > 1``) and the elastic pool come with later slices of
-the port and raise ``NotImplementedError`` until then.
+    repro_torch.Client(n_regions=2, device="cpu")        # plain kernels
+    repro_torch.Client(serving={"lm": "attention"})      # paged-KV LM
+
+``submit(task) -> TaskHandle``, ``launch(kernel, hittiles, ...)`` and
+``stream(prompt) -> SequenceHandle`` bind to one shell's scheduler.
+Multi-shell clusters (``n_shells > 1``) and the elastic pool come with
+later slices of the port and raise ``NotImplementedError`` until then.
 """
 from __future__ import annotations
 
@@ -27,14 +31,22 @@ class Client:
     """Submission facade over one Shell + Scheduler, both owned by the
     Client: ``Shell(n_regions, ...)`` on ``device`` (``None`` = ``cuda:0``;
     raises without CUDA) and a ``Scheduler`` whose ``run_forever`` loop
-    runs on a thread of its own."""
+    runs on a thread of its own.
+
+    ``serving`` (a ``ServingConfig``, or a kwargs dict for one — e.g.
+    ``serving={"lm": "attention"}`` to stream from the paged-KV attention
+    backend) configures the lazily-created token-serving engine behind
+    ``stream()``; its LM lives on the shell's device."""
 
     def __init__(self, *, n_regions: int = 2, n_shells: int = 1,
                  scheduler_config: Optional[SchedulerConfig] = None,
-                 device=None, **shell_kwargs):
+                 device=None, serving=None, **shell_kwargs):
         if n_shells != 1:
             raise NotImplementedError(
                 "multi-shell clusters (n_shells > 1) are not ported yet")
+        self._serving_cfg = serving
+        self._engine = None
+        self._engine_lock = threading.Lock()
         devices = None if device is None else [device]
         self.shell = Shell(n_regions=n_regions, devices=devices,
                            **shell_kwargs)
@@ -68,10 +80,40 @@ class Client:
                     priority=priority, tenant=tenant)
         return self.submit(task)
 
+    # -- token serving ---------------------------------------------------
+    @property
+    def serving(self):
+        """The lazily-started ``ServingEngine`` behind ``stream()``."""
+        with self._engine_lock:
+            if self._engine is None:
+                from repro_torch.serving.engine import (ServingConfig,
+                                                        ServingEngine)
+
+                cfg = self._serving_cfg or ServingConfig()
+                if isinstance(cfg, dict):
+                    cfg = ServingConfig(**cfg)
+                self._engine = ServingEngine(self.scheduler, cfg).start()
+            return self._engine
+
     def stream(self, prompt, params=None, tenant: str = "default",
                **param_kwargs):
-        raise NotImplementedError(
-            "token serving (Client.stream) is not ported yet")
+        """Submit one generation sequence; returns a ``SequenceHandle``
+        (iterate it for tokens as they stream, or ``result()`` for the
+        full list).  ``prompt`` is a token-id sequence or a prepared
+        ``Sequence``; sampling knobs come as a ``SamplingParams`` or as
+        keywords (``max_new_tokens=...``, ``seed=...``)."""
+        from repro_torch.serving.sequence import SamplingParams, Sequence
+
+        if isinstance(prompt, Sequence):
+            if params is not None or param_kwargs:
+                raise ValueError(
+                    "pass sampling params inside the Sequence, not both")
+            return self.serving.submit_sequence(prompt)
+        if params is None:
+            params = SamplingParams(**param_kwargs)
+        elif param_kwargs:
+            raise ValueError("pass params= or keywords, not both")
+        return self.serving.submit(prompt, params, tenant=tenant)
 
     # -- observability ---------------------------------------------------
     def report(self) -> dict:
@@ -79,10 +121,20 @@ class Client:
         ``core/reporting.py``)."""
         return self.scheduler.report()
 
+    def serving_report(self) -> Optional[dict]:
+        """The serving engine's report (layer ``serving``), or ``None``
+        if ``stream()`` was never used."""
+        with self._engine_lock:
+            return self._engine.report() if self._engine else None
+
     # -- lifecycle -------------------------------------------------------
     def drain(self, timeout: Optional[float] = None) -> dict:
         """Graceful stop: finish all submitted tasks, then stop whatever
         this Client owns.  Returns the final report."""
+        with self._engine_lock:
+            engine = self._engine
+        if engine is not None:
+            engine.drain(timeout)
         rep = self.scheduler.drain(timeout)
         self.shell.shutdown()
         return rep if rep is not None else self.report()
@@ -90,6 +142,10 @@ class Client:
     def shutdown(self, timeout: Optional[float] = None) -> Optional[dict]:
         """Stop now: cancel queued work, let running tasks finish, tear
         down owned resources."""
+        with self._engine_lock:
+            engine = self._engine
+        if engine is not None:
+            engine.shutdown(timeout)
         rep = self.scheduler.shutdown(timeout)
         self.shell.shutdown()
         return rep

@@ -14,6 +14,7 @@ from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
 import numpy as np
+import torch
 
 N_BUF_SLOTS = 6    # pointer args (HitTiles); unused slots hold (1,1) dummies
 N_INT_ARGS = 8     # the paper pads to 8 integer scalars
@@ -22,8 +23,10 @@ N_FLOAT_ARGS = 8   # ... and 8 float scalars
 
 @dataclass
 class ArgBundle:
-    """Uniform argument record.  ``bufs`` are numpy arrays (HitTile data);
-    ints/floats are padded to fixed width."""
+    """Uniform argument record.  ``bufs`` are numpy arrays (HitTile data)
+    or device tensors threaded from an earlier task (serving rounds pass
+    their K/V pools and weights on); ints/floats are padded to fixed
+    width."""
     bufs: Tuple[Any, ...] = ()
     ints: Tuple[int, ...] = ()
     floats: Tuple[float, ...] = ()
@@ -53,13 +56,22 @@ class ArgBundle:
     def signature(self) -> tuple:
         """Shape/dtype signature — the 'interface' a region must be
         configured for (kernel + signature = one bitstream).  Equal to the
-        reference's tuple for the same numpy inputs: numpy dtype names
-        (``'float32'``), shapes as int tuples."""
+        reference's tuple for the same shapes: numpy dtype names
+        (``'float32'``), shapes as int tuples.  A tensor is described from
+        its metadata, never copied."""
         if self._sig is None:
             bufs, _, _ = self.padded()
-            self._sig = tuple((tuple(b.shape), np.asarray(b).dtype.name)
+            self._sig = tuple((tuple(int(n) for n in b.shape), dtype_name(b))
                               for b in bufs)
         return self._sig
+
+
+def dtype_name(b) -> str:
+    """The numpy dtype name of an array or tensor (``torch.float32`` ->
+    ``'float32'``, ``torch.bfloat16`` -> ``'bfloat16'`` as JAX names it)."""
+    if isinstance(b, torch.Tensor):
+        return str(b.dtype).removeprefix("torch.")
+    return np.asarray(b).dtype.name
 
 
 def abi_signature(bundle: ArgBundle) -> tuple:

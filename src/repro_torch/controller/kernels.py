@@ -37,6 +37,11 @@ class KernelDef:
     # Bitstream generation builds and loads it, and regions record the
     # resolved kernel mode ("cuda" | "torch") in their stats
     library: Optional[str] = None
+    # hand the final buffers back as device tensors (serving kernels: the
+    # engine threads K/V pools and state into the next round), each marked
+    # with the event recorded after the task's last launch; False = the
+    # first two buffers as host numpy
+    device_result: bool = False
 
     def bundle(self, *bufs, **scalars) -> ArgBundle:
         """Build an ArgBundle from declared argument names."""
@@ -54,14 +59,16 @@ def ctrl_kernel(name: str, backend: str = "PYNQ",
                 float_args: Sequence[str] = (),
                 default_budget: int = 64,
                 footprint: int = 1,
-                library: Optional[str] = None):
+                library: Optional[str] = None,
+                device_result: bool = False):
     def deco(fn):
         kd = KernelDef(name=name, backend=backend, fn=fn,
                        ktile_args=tuple(ktile_args), int_args=tuple(int_args),
                        float_args=tuple(float_args),
                        default_budget=default_budget,
                        footprint=footprint,
-                       library=library)
+                       library=library,
+                       device_result=device_result)
         _REGISTRY[name] = kd
         return fn
 
@@ -70,7 +77,10 @@ def ctrl_kernel(name: str, backend: str = "PYNQ",
 
 def _register_builtin():
     # importing the task modules registers the paper's workload set (blur)
+    # and the token-serving prefill/decode kernels (surrogate + attention)
     import repro_torch.kernels.blur.tasks  # noqa: F401
+    import repro_torch.serving.attention  # noqa: F401
+    import repro_torch.serving.kernels  # noqa: F401
 
 
 def get_kernel(name: str) -> KernelDef:

@@ -22,6 +22,9 @@ chunk.
 ``ContextBank`` keeps the committed copy with the paper's ``valid``-flag
 protocol realized as a double-buffered commit: a crash or preemption
 *during* a save leaves the previous buffer valid.
+
+``KVBlockPool`` is the serving path's page accounting, a copy of the
+reference's (``repro/core/context.py``), behaviour unchanged.
 """
 from __future__ import annotations
 
@@ -181,7 +184,9 @@ class Committed:
 def from_reference(committed) -> Committed:
     """The reference's materialized ``Committed`` (numpy ``ContextRecord``
     leaves, numpy-convertible payload) as the port's host commit — a task
-    checkpoint-preempted in the JAX package resumes here."""
+    checkpoint-preempted in the JAX package resumes here.  Every payload
+    leaf keeps its dtype and shape: f32 images, the serving kernels' int32
+    token and block tables, f32 K/V pools and weights."""
     ctx = committed.context
     ctx = ContextRecord.from_fields({f: getattr(ctx, f) for f in _FIELDS})
     payload = (tuple(np.array(b) for b in committed.payload)
@@ -200,6 +205,119 @@ def to_reference(committed: Committed) -> dict:
                if host.payload is not None else None)
     return {"seqno": host.seqno, "tid": host.tid,
             "context": host.context.fields(), "payload": payload}
+
+
+class KVBlockPool:
+    """Fixed-size KV block allocator (DESIGN.md §13) — the paged-KV
+    analogue of the region's BRAM banking.
+
+    The *bytes* of the pages live in two device arrays the serving
+    engine threads round-to-round (``[NB, BS, KV, hd]`` pools inside the
+    decode task's ArgBundle — preemption commits them through the same
+    ContextBank lazy-spill path as any payload).  This object is the
+    host-side book-keeping: which page ids belong to which sequence,
+    the free list, and the occupancy/eviction/reuse accounting the
+    telemetry gauges expose.
+
+    Block 0 is the reserved **null page**: block tables are padded with
+    it, and inactive decode rows scatter zeros into it — duplicate
+    same-value writes, so page content is deterministic under any batch
+    composition and resume schedule.
+    """
+
+    def __init__(self, n_blocks: int, block_size: int, metrics=None):
+        if n_blocks < 2:
+            raise ValueError(f"need >= 2 blocks (block 0 is the null "
+                             f"page), got {n_blocks}")
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.n_blocks = n_blocks
+        self.block_size = block_size
+        # live metrics registry (the reference's obs/registry.py; not
+        # ported yet, so callers pass None): None-guarded, zero cost when
+        # disabled
+        self.metrics = metrics
+        self._free = list(range(n_blocks - 1, 0, -1))  # pop() -> 1, 2, ...
+        self._by_sid: dict = {}        # sid -> [block ids, in position order]
+        self._ever_used: set = set()
+        self.in_use = 0
+        self.peak_in_use = 0
+        self.evictions = 0             # blocks freed back to the pool
+        self.reuse = 0                 # allocations of a previously-freed id
+        self.alloc_deferred = 0        # ensure() calls refused for capacity
+
+    # -- allocation --------------------------------------------------------
+    def blocks_for(self, n_tokens: int) -> int:
+        """Pages needed to hold ``n_tokens`` positions."""
+        return -(-n_tokens // self.block_size)
+
+    def ensure(self, sid: int, n_tokens: int) -> Optional[list]:
+        """Grow ``sid``'s block list to cover ``n_tokens`` positions.
+
+        Returns the sequence's full block list on success, or ``None``
+        (and counts ``alloc_deferred``) when the pool cannot cover the
+        growth — the caller defers admission until pages free up; the
+        transaction is all-or-nothing, so a partial grab is never held
+        across a deferral."""
+        have = self._by_sid.setdefault(sid, [])
+        need = self.blocks_for(n_tokens) - len(have)
+        if need <= 0:
+            return have
+        if need > len(self._free):
+            self.alloc_deferred += 1
+            if not have:
+                self._by_sid.pop(sid, None)
+            return None
+        for _ in range(need):
+            bid = self._free.pop()
+            if bid in self._ever_used:
+                self.reuse += 1
+            self._ever_used.add(bid)
+            have.append(bid)
+        self.in_use += need
+        self.peak_in_use = max(self.peak_in_use, self.in_use)
+        self._gauge()
+        return have
+
+    def blocks(self, sid: int) -> list:
+        return self._by_sid.get(sid, [])
+
+    def release(self, sid: int) -> int:
+        """Free every page ``sid`` holds (slot eviction / failure)."""
+        blocks = self._by_sid.pop(sid, [])
+        if blocks:
+            self._free.extend(reversed(blocks))
+            self.in_use -= len(blocks)
+            self.evictions += len(blocks)
+            self._gauge()
+            if self.metrics is not None:
+                self.metrics.counter("kv_block_evictions").inc(len(blocks))
+        return len(blocks)
+
+    def _gauge(self):
+        if self.metrics is not None:
+            self.metrics.gauge("kv_blocks_in_use").set(self.in_use)
+
+    # -- observability -----------------------------------------------------
+    @property
+    def free(self) -> int:
+        return len(self._free)
+
+    def occupancy(self) -> float:
+        """In-use fraction of the allocatable pool (block 0 excluded)."""
+        return self.in_use / max(self.n_blocks - 1, 1)
+
+    def stats(self) -> dict:
+        return {
+            "blocks_total": self.n_blocks - 1,  # allocatable (null excluded)
+            "block_size": self.block_size,
+            "blocks_in_use": self.in_use,
+            "blocks_peak": self.peak_in_use,
+            "occupancy": self.occupancy(),
+            "evictions": self.evictions,
+            "reuse": self.reuse,
+            "alloc_deferred": self.alloc_deferred,
+        }
 
 
 class ContextBank:

@@ -9,8 +9,11 @@ before the associated kernel launch — exactly §4.2.
 On a CUDA device a region is a **CUDA stream** that time-shares the card
 with the other regions (the reference's single-device ``allow_overlap``
 regime).  The worker thread issues every launch of its tasks under
-``torch.cuda.stream(region.stream)``; tensors never cross to another
-region's stream except through the host (``Committed.materialize``).
+``torch.cuda.stream(region.stream)``; a committed payload crosses to
+another region's stream only through the host (``Committed.materialize``).
+The results of ``device_result`` kernels stay on the card: each carries the
+event recorded after the task's last launch, and a consumer's stream waits
+on it before reading (``core/streams.py``).
 
 Preemption is cooperative-chunked: the worker checks the preempt flag
 between chunks, saves the context+payload through the double-buffered bank,
@@ -51,6 +54,7 @@ from repro_torch.controller.kernels import get_kernel
 from repro_torch.core.context import ContextBank, ContextRecord, Committed
 from repro_torch.core.interrupts import Event, EventKind, InterruptController
 from repro_torch.core.reconfig import ReconfigEngine
+from repro_torch.core.streams import mark_ready, wait_ready
 from repro_torch.core.task import Task, TaskStatus
 
 # host-side wait while a chunk's event resolves: bounded exponential
@@ -313,15 +317,20 @@ class Region:
         return ev
 
     def _upload(self, b):
-        """A private device copy of a host buffer (the chunk writes its
-        payload in place, so the bundle's own buffer must stay intact for
-        a post-failure re-dispatch)."""
+        """A private device copy of a buffer (the chunk writes its payload
+        in place, so the bundle's own buffer must stay intact for a
+        post-failure re-dispatch).  A device tensor from an earlier task or
+        from the engine is copied on this region's stream after its
+        producer's event."""
+        if isinstance(b, torch.Tensor):
+            wait_ready(b, self.stream)
         return torch.as_tensor(b).to(self.device, copy=True)
 
     def _prepare(self, task: Task):
         """Initial (ctx, bufs) for a launch, on this region's stream.
 
-        - fresh launch: copy the argument buffers to the device;
+        - fresh launch: copy the argument buffers to the device (a device
+          tensor after its producer's event);
         - resume on the *same* region: the committed payload never left
           device memory — clone it on this stream (the bank keeps the
           committed copy for failure recovery) and skip the host round trip;
@@ -373,12 +382,18 @@ class Region:
         self.interrupts.raise_interrupt(Event(
             EventKind.TASK_PREEMPTED, self.rid, task=task))
 
-    def _finish_done(self, task: Task, bufs, t_busy0: float):
-        """Completion tail: host numpy results, copied on this stream (so
-        after every launch of the task)."""
+    def _finish_done(self, task: Task, kd, bufs, t_busy0: float):
+        """Completion tail.  ``device_result`` kernels hand every buffer
+        back on the card, marked with the event recorded after the task's
+        last launch; the others get their first two buffers as host numpy,
+        copied on this stream (so after every launch of the task)."""
         task.status = TaskStatus.DONE
         task.t_done = time.perf_counter()
-        task.result = tuple(b.cpu().numpy() for b in bufs[:2])
+        if kd.device_result:
+            mark_ready(bufs, self._record())
+            task.result = tuple(bufs)
+        else:
+            task.result = tuple(b.cpu().numpy() for b in bufs[:2])
         self.stats.kernels_run += 1
         self.current_task = None
         self.stats.busy_s += time.perf_counter() - t_busy0
@@ -480,7 +495,7 @@ class Region:
                 pending.clear()
                 break
 
-        self._finish_done(task, bufs, t_busy0)
+        self._finish_done(task, kd, bufs, t_busy0)
 
 
 class RegionFailure(Exception):

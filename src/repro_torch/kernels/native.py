@@ -5,8 +5,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 loads: a build of seconds, with no PyTorch headers involved.  The build
 runs at first use, once per process, under its own lock (region workers
 and the bitstream prefetcher may race to it), into ``build/repro_torch/``
-at the repository root.  The library file carries a hash of its source,
-so an edited source is rebuilt and a stale library is never loaded.
+at the repository root.  Each library has its own lock, so
+``load_libraries`` runs one ``nvcc`` per source, all at once.  The library
+file carries a hash of its source, so an edited source is rebuilt and a
+stale library is never loaded.
 
 Nothing here runs at import: importing this module needs no CUDA toolkit.
 """
@@ -20,15 +22,17 @@ import subprocess
 import threading
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards the per-library lock table
+_build_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build-and-load wall time (load only when the library
 # file already existed), "log": nvcc output ("" then), "path": the .so}
@@ -51,6 +55,8 @@ def _nvcc() -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded ``csrc/<name>.cu`` library, built on first use."""
     with _lock:
+        build_lock = _build_locks.setdefault(name, threading.Lock())
+    with build_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
@@ -74,6 +80,14 @@ def load_library(name: str) -> ctypes.CDLL:
                             "path": str(out)}
         _libs[name] = lib
         return lib
+
+
+def load_libraries(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """Build and load several libraries at once, one ``nvcc`` per source
+    running in parallel."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        libs = list(pool.map(load_library, names))
+    return dict(zip(names, libs))
 
 
 class LaunchCounter:

@@ -54,9 +54,58 @@ def test_blur_kernels_registered_like_reference(name):
 
 
 def test_only_blur_is_registered_in_this_slice():
-    assert kernel_names() == ["GaussianBlur", "MedianBlur"]
+    """The registry holds the reference's built-in kernel set: blur plus
+    the serving kernels (surrogate and attention LM) since the serving
+    slice; unknown names still raise."""
+    from repro.controller.kernels import kernel_names as ref_kernel_names
+
+    assert kernel_names() == ref_kernel_names() == [
+        "AttnDecode", "AttnPrefill", "GaussianBlur", "MedianBlur",
+        "SeqDecode", "SeqPrefill"]
     with pytest.raises(KeyError):
-        get_kernel("SeqDecode")
+        get_kernel("NoSuchKernel")
+
+
+@pytest.mark.parametrize("name", ["SeqPrefill", "SeqDecode", "AttnPrefill",
+                                  "AttnDecode"])
+def test_serving_kernels_registered_like_reference(name):
+    kd, rkd = get_kernel(name), ref_get_kernel(name)
+    assert (kd.int_args, kd.ktile_args, kd.default_budget, kd.footprint,
+            kd.device_result) == (rkd.int_args, rkd.ktile_args,
+                                  rkd.default_budget, rkd.footprint,
+                                  rkd.device_result)
+    assert kd.device_result
+    assert kd.library == {"AttnPrefill": "flash_attention",
+                          "AttnDecode": "decode_attention"}.get(name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32", "bfloat16"])
+def test_signature_of_tensors_equals_reference(dtype):
+    """Device-resident buffers (K/V pools, weights) ride serving bundles as
+    tensors: their signature is the reference's tuple for the same shapes,
+    read from metadata alone."""
+    import jax.numpy as jnp
+
+    shapes = [(5, 8, 2, 16), (3, 12), (7,)]
+    tensors = tuple(torch.zeros(s, dtype=getattr(torch, dtype))
+                    for s in shapes)
+    arrays = tuple(jnp.zeros(s, dtype=dtype) for s in shapes)
+    port = abi.ArgBundle(bufs=tensors, ints=(1,))
+    ref = ref_abi.ArgBundle(bufs=arrays, ints=(1,))
+    assert port.signature() == ref.signature()
+    mixed = abi.ArgBundle(bufs=(np.zeros((3, 12), np.int32), tensors[0]))
+    assert mixed.signature()[:2] == (((3, 12), "int32"),
+                                     ((5, 8, 2, 16), dtype))
+
+
+def test_signature_never_copies_a_tensor(monkeypatch):
+    def boom(*args, **kwargs):
+        raise AssertionError("signature() copied a tensor")
+
+    for name in ("__array__", "numpy", "cpu", "clone", "to"):
+        monkeypatch.setattr(torch.Tensor, name, boom)
+    t = torch.zeros(4, 4)
+    assert abi.ArgBundle(bufs=(t,)).signature()[0] == ((4, 4), "float32")
 
 
 def test_hittile_round_trip():

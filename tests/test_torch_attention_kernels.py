@@ -1,0 +1,158 @@
+"""The port's attention kernels (flash prefill B2, paged decode B3) against
+the reference on the CPU.
+
+On the CPU the port's wrappers take their plain PyTorch versions; they are
+held against the reference's Pallas kernels in interpret mode, through the
+reference's own wrappers, on the same numpy inputs.  The hand-written CUDA
+kernels run only on the card: their tests are in ``test_torch_cuda.py``.
+Tolerances are the reference's (``tests/test_attention_kernels.py``):
+2e-5 in f32, 2e-2 in bf16 (one bf16 rounding of the output).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels.decode_attention.ops import decode_attention as ref_decode  # noqa: E402
+from repro.kernels.decode_attention.ops import (  # noqa: E402
+    paged_decode_attention as ref_paged)
+from repro.kernels.flash_attention.ops import flash_attention as ref_flash  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as dref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+
+F32_TOL, BF16_TOL = 2e-5, 2e-2
+
+
+def _normal(rng, shape):
+    return rng.standard_normal(shape, dtype=np.float32)
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a jnp array and a torch tensor of ``dtype``."""
+    return (jnp.asarray(a, dtype=jnp.dtype(dtype)),
+            torch.tensor(a).to(getattr(torch, dtype)))
+
+
+# -- flash attention (B2) -----------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL),
+                                       ("bfloat16", BF16_TOL)])
+@pytest.mark.parametrize("C,off", [(8, 0), (8, 8), (8, 24), (16, 16)])
+def test_plain_flash_matches_reference_over_q_offset(dtype, tol, C, off):
+    """The chunked-prefill sweep of the reference's
+    ``test_flash_q_offset_matches_full_causal``: a C-query slab at absolute
+    offset ``off`` against the whole S-key cache, GQA 4:2."""
+    B, H, KV, S, hd = 2, 4, 2, 32, 16
+    rng = np.random.default_rng(C * 100 + off)
+    q = _normal(rng, (B, H, S, hd))[:, :, off:off + C]
+    k, v = _normal(rng, (B, KV, S, hd)), _normal(rng, (B, KV, S, hd))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+    want = ref_flash(jq, jk, jv, causal=True, bq=C, bk=32,
+                     q_offset=jnp.asarray([off]))
+    got = fops.flash_attention(tq, tk, tv, causal=True, q_offset=off)
+    assert got.dtype == tq.dtype and got.shape == (B, H, C, hd)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("window", [None, 1, 5])
+@pytest.mark.parametrize("H,KV", [(4, 1), (6, 3), (2, 2)])
+def test_plain_flash_matches_reference_gqa_window(window, H, KV):
+    B, T, hd = 2, 16, 16
+    rng = np.random.default_rng(H * 10 + KV + (window or 0))
+    q = _normal(rng, (B, H, T, hd))
+    k, v = _normal(rng, (B, KV, T, hd)), _normal(rng, (B, KV, T, hd))
+    want = ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=True, window=window)
+    got = fops.flash_attention(torch.tensor(q), torch.tensor(k),
+                               torch.tensor(v), causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=F32_TOL)
+
+
+def test_plain_flash_fully_masked_row_is_zero():
+    """A query row with no visible key (window 0) outputs 0, as the Pallas
+    kernel's clamped max and floored denominator make it."""
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.tensor(_normal(rng, (1, 2, 4, 8))) for _ in range(3))
+    out = fops.flash_attention(q, k, v, causal=True, window=0)
+    assert bool((out == 0).all())
+    want = ref_flash(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                     jnp.asarray(v.numpy()), causal=True, window=0)
+    np.testing.assert_array_equal(np.asarray(want), out.numpy())
+
+
+# -- decode attention (B3) ----------------------------------------------------
+
+def _paged_fixture(B=3, KV=2, hd=16, BS=8, T_blk=4, seed=0):
+    """The reference test's pool: every row gets T_blk distinct shuffled
+    non-null pages."""
+    rng = np.random.default_rng(seed)
+    NB = 1 + B * T_blk
+    k_pool = _normal(rng, (NB, BS, KV, hd))
+    v_pool = _normal(rng, (NB, BS, KV, hd))
+    tables = rng.permutation(np.arange(1, NB))[:B * T_blk].reshape(
+        B, T_blk).astype(np.int32)
+    return k_pool, v_pool, tables, rng
+
+
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("pos", [(1, 9, 25), (32, 32, 32), (0, 5, 31)])
+def test_plain_paged_decode_matches_reference(pos, window):
+    k_pool, v_pool, tables, rng = _paged_fixture(seed=sum(pos))
+    q = _normal(rng, (3, 4, 1, 16))
+    want = ref_paged(jnp.asarray(q), jnp.asarray(k_pool),
+                     jnp.asarray(v_pool), jnp.asarray(tables),
+                     jnp.asarray(pos, jnp.int32), window=window)
+    got = dops.paged_decode_attention(
+        torch.tensor(q), torch.tensor(k_pool), torch.tensor(v_pool),
+        torch.tensor(tables), torch.tensor(pos, dtype=torch.int32),
+        window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=F32_TOL)
+
+
+@pytest.mark.parametrize("pos", [(0, 3, 16), (17, 40, 100), 23])
+def test_plain_ring_decode_matches_reference(pos):
+    """Contiguous ring caches, per-row positions including 0 and rings
+    that wrapped (pos > S), and a scalar pos broadcast to every row."""
+    rng = np.random.default_rng(7)
+    B, H, KV, S, hd = 3, 4, 2, 16, 8
+    q = _normal(rng, (B, H, 1, hd))
+    k, v = _normal(rng, (B, KV, S, hd)), _normal(rng, (B, KV, S, hd))
+    jpos = jnp.asarray(pos, jnp.int32)
+    tpos = (torch.tensor(pos, dtype=torch.int32)
+            if isinstance(pos, tuple) else pos)
+    want = ref_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jpos)
+    got = dops.decode_attention(torch.tensor(q), torch.tensor(k),
+                                torch.tensor(v), tpos)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=F32_TOL)
+
+
+def test_plain_paged_bitwise_equals_gather_plus_contiguous():
+    k_pool, v_pool, tables, rng = _paged_fixture(seed=3)
+    q = torch.tensor(_normal(rng, (3, 4, 1, 16)))
+    kp, vp, tb = (torch.tensor(a) for a in (k_pool, v_pool, tables))
+    dense_k = kp[tb.long()].reshape(3, 32, 2, 16).permute(0, 2, 1, 3)
+    dense_v = vp[tb.long()].reshape(3, 32, 2, 16).permute(0, 2, 1, 3)
+    assert torch.equal(dref.gather_kv_pages(kp, tb), dense_k)
+    for pos in ([7, 19, 32], [0, 1, 2]):
+        p = torch.tensor(pos, dtype=torch.int32)
+        assert torch.equal(dops.paged_decode_attention(q, kp, vp, tb, p),
+                           dops.decode_attention(q, dense_k, dense_v, p))
+
+
+def test_plain_decode_pos_zero_row_is_exactly_zero():
+    """Dead serving slots decode with pos = 0: no valid key, output 0 (the
+    reference's direct-softmax oracle would give the mean of v)."""
+    k_pool, v_pool, tables, rng = _paged_fixture(seed=4)
+    q = torch.tensor(_normal(rng, (3, 4, 1, 16)))
+    out = dops.paged_decode_attention(
+        q, torch.tensor(k_pool), torch.tensor(v_pool), torch.tensor(tables),
+        torch.tensor([0, 0, 5], dtype=torch.int32))
+    assert bool((out[:2] == 0).all()) and bool((out[2] != 0).any())

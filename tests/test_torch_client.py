@@ -226,6 +226,16 @@ def test_elastic_pool_is_not_ported_yet():
 
 
 def test_stream_is_not_ported_yet():
+    """Token serving came with the serving slice: ``stream`` now returns a
+    handle whose tokens are the surrogate oracle's, and ``serving_report``
+    reads ``None`` until the engine is first used."""
+    from repro_torch.serving.kernels import oracle_stream
+
     with Client(n_regions=1, device="cpu") as client:
-        with pytest.raises(NotImplementedError, match="token serving"):
-            client.stream([1, 2, 3])
+        assert client.serving_report() is None
+        h = client.stream([1, 2, 3], max_new_tokens=4, seed=1)
+        assert h.result(timeout=TIMEOUT) == oracle_stream([1, 2, 3], 1, 4,
+                                                          64, 101)
+        with pytest.raises(ValueError, match="not both"):
+            client.stream([1], params=object(), max_new_tokens=2)
+        assert client.serving_report()["n_finished"] == 1

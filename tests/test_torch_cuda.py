@@ -1,6 +1,7 @@
-"""The port on the card: the hand-written CUDA blur kernel against its
-plain PyTorch version, and the Client's preempt/resume path through CUDA
-streams.  A CUDA kernel has no CPU mode, so every test here carries the
+"""The port on the card: the hand-written CUDA kernels (blur, flash
+attention, decode attention) against their plain PyTorch versions, the
+Client's preempt/resume path through CUDA streams, and token serving on
+the attention LM.  A CUDA kernel has no CPU mode, so every test here carries the
 ``cuda`` marker and skips without a card.  This file imports nothing of
 the JAX package, so it runs where JAX is absent:
 
@@ -14,12 +15,25 @@ import numpy as np  # noqa: E402
 
 from repro_torch import Client  # noqa: E402
 from repro_torch.controller.kernels import get_kernel  # noqa: E402
+from repro_torch.core.streams import mark_ready  # noqa: E402
 from repro_torch.core.task import Task  # noqa: E402
 from repro_torch.kernels.blur import kernel as K  # noqa: E402
 from repro_torch.kernels.blur import ops, ref  # noqa: E402
 from repro_torch.kernels.blur.tasks import ROW_BLOCK, make_image  # noqa: E402
+from repro_torch.kernels.decode_attention import kernel as DK  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as dref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
+from repro_torch.serving.attention import (AttentionParams,  # noqa: E402
+                                           attention_oracle_stream)
 
 GAUSS_TOL = 1e-6  # powers-of-two weights: products exact, sums in order
+# attention: the kernels sum in another order than the plain versions
+# (tiles, fmaf, warp butterflies); f32 tolerance as the reference's tests,
+# bf16 for one bf16 rounding of the output
+F32_TOL, BF16_TOL = 2e-5, 2e-2
 TIMEOUT = 120
 
 pytestmark = pytest.mark.cuda
@@ -131,3 +145,217 @@ def test_cuda_client_preempt_resume_is_bit_identical(cuda_device):
     for t in (same, cross):
         for got, exp in zip(t.result, base.result):
             np.testing.assert_array_equal(got, exp)
+
+
+# -- attention kernels ---------------------------------------------------
+
+def _randn(rng, shape, device, dtype=torch.float32):
+    return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                        device=device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("B,H,KV,T,S,hd,off,window", [
+    (4, 32, 8, 16, 128, 128, 0, None),      # the serving prefill shape
+    (4, 32, 8, 16, 128, 128, 64, None),
+    (4, 32, 8, 16, 128, 128, 112, None),
+    (2, 4, 2, 8, 32, 16, 24, None),         # the reference's q_offset sweep
+    (2, 4, 4, 40, 40, 64, None, 7),         # ragged tiles, sliding window
+    (1, 2, 1, 3, 5, 120, None, None),       # hd 120 (no lane padding)
+])
+def test_cuda_flash_matches_plain_version(cuda_device, dtype, tol, B, H, KV,
+                                          T, S, hd, off, window):
+    rng = np.random.default_rng(T * S + hd)
+    q = _randn(rng, (B, H, T, hd), cuda_device, dtype)
+    k = _randn(rng, (B, KV, S, hd), cuda_device, dtype)
+    v = _randn(rng, (B, KV, S, hd), cuda_device, dtype)
+    before = FK.LAUNCHES["flash"]
+    got = fops.flash_attention(q, k, v, causal=True, window=window,
+                               q_offset=off)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash"] == before + 1
+    want = fref.flash_attention(q, k, v, causal=True, window=window,
+                                q_offset=off)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+def test_cuda_flash_takes_strided_cache_and_masks_to_zero(cuda_device):
+    """The prefill passes k_new.transpose(1, 2) ([PB,P,KV,hd] storage); a
+    row whose keys are all masked (window 0) outputs exactly 0."""
+    rng = np.random.default_rng(5)
+    q = _randn(rng, (2, 3, 4, 8), cuda_device).transpose(1, 2)  # strided
+    k_new = _randn(rng, (2, 16, 2, 8), cuda_device)
+    v_new = _randn(rng, (2, 16, 2, 8), cuda_device)
+    got = fops.flash_attention(q, k_new.transpose(1, 2),
+                               v_new.transpose(1, 2), q_offset=5)
+    want = fref.flash_attention(q, k_new.transpose(1, 2),
+                                v_new.transpose(1, 2), q_offset=5)
+    torch.testing.assert_close(got, want, rtol=0, atol=F32_TOL)
+    dead = fops.flash_attention(q, k_new.transpose(1, 2),
+                                v_new.transpose(1, 2), q_offset=5, window=0)
+    assert bool((dead == 0).all())
+
+
+def _paged(rng, device, B=8, H=32, KV=8, hd=128, BS=16, T_blk=8, NB=65):
+    k_pool = _randn(rng, (NB, BS, KV, hd), device)
+    v_pool = _randn(rng, (NB, BS, KV, hd), device)
+    ids = rng.permutation(np.arange(1, NB))[:B * T_blk]
+    tables = torch.tensor(ids.reshape(B, T_blk).astype(np.int32),
+                          device=device)
+    q = _randn(rng, (B, H, 1, hd), device)
+    return q, k_pool, v_pool, tables
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_cuda_decode_matches_plain_version(cuda_device, window):
+    rng = np.random.default_rng(9)
+    q, k_pool, v_pool, tables = _paged(rng, cuda_device)
+    pos = torch.tensor([0, 1, 17, 64, 100, 127, 128, 128], dtype=torch.int32,
+                       device=cuda_device)
+    before = DK.LAUNCHES.total()
+    got = dops.paged_decode_attention(q, k_pool, v_pool, tables, pos,
+                                      window=window)
+    torch.cuda.synchronize()
+    assert DK.LAUNCHES["paged"] >= 1 and DK.LAUNCHES.total() == before + 1
+    want = dref.paged_decode_attention(q, k_pool, v_pool, tables, pos,
+                                       window=window)
+    torch.testing.assert_close(got, want, rtol=0, atol=F32_TOL)
+    assert bool((got[0] == 0).all())  # pos = 0: no valid key
+    # a ring that wrapped: pos past the cache length
+    k_lin = dref.gather_kv_pages(k_pool, tables).contiguous()
+    v_lin = dref.gather_kv_pages(v_pool, tables).contiguous()
+    ring = torch.tensor([0, 5, 128, 129, 200, 255, 256, 1000],
+                        dtype=torch.int32, device=cuda_device)
+    got = dops.decode_attention(q, k_lin, v_lin, ring, window=window)
+    want = dref.decode_attention(q, k_lin, v_lin, ring, window=window)
+    torch.testing.assert_close(got, want, rtol=0, atol=F32_TOL)
+
+
+def test_cuda_paged_bitwise_equals_gather_plus_contiguous(cuda_device):
+    rng = np.random.default_rng(10)
+    q, k_pool, v_pool, tables = _paged(rng, cuda_device)
+    for pos in ([1, 9, 25, 33, 64, 80, 127, 128], 128):
+        p = (torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+             if isinstance(pos, list) else pos)
+        paged = dops.paged_decode_attention(q, k_pool, v_pool, tables, p)
+        dense = dops.decode_attention(
+            q, dref.gather_kv_pages(k_pool, tables),
+            dref.gather_kv_pages(v_pool, tables), p)
+        assert torch.equal(paged, dense)
+
+
+def test_cuda_attention_wrappers_reject_bad_inputs(cuda_device):
+    rng = np.random.default_rng(11)
+    q = _randn(rng, (1, 4, 8, 16), cuda_device)
+    k = _randn(rng, (1, 2, 8, 16), cuda_device)
+    with pytest.raises(ValueError, match="CUDA"):
+        FK.launch(q.cpu(), k, k, causal=True, window=None, q_offset=0,
+                  scale=0.25)
+    with pytest.raises(TypeError):
+        FK.launch(q.double(), k.double(), k.double(), causal=True,
+                  window=None, q_offset=0, scale=0.25)
+    with pytest.raises(TypeError):
+        FK.launch(q, k.bfloat16(), k, causal=True, window=None, q_offset=0,
+                  scale=0.25)
+    with pytest.raises(ValueError, match="KV"):
+        FK.launch(q, k[:, :, :, :8], k, causal=True, window=None, q_offset=0,
+                  scale=0.25)
+    with pytest.raises(ValueError, match="head dim"):
+        FK.launch(q.transpose(2, 3).contiguous().transpose(2, 3), k, k,
+                  causal=True, window=None, q_offset=0, scale=0.25)
+    qd, k_pool, v_pool, tables = _paged(rng, cuda_device, B=2, H=4, KV=2,
+                                        hd=16, BS=4, T_blk=3, NB=8)
+    pos = torch.tensor([3, 5], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="CUDA"):
+        DK.launch_paged(qd, k_pool, v_pool, tables.cpu(), pos, window=None,
+                        scale=0.25)
+    with pytest.raises(TypeError):
+        DK.launch_paged(qd.bfloat16(), k_pool, v_pool, tables, pos,
+                        window=None, scale=0.25)
+    with pytest.raises(TypeError):
+        DK.launch_paged(qd, k_pool, v_pool, tables.long(), pos, window=None,
+                        scale=0.25)
+    with pytest.raises(ValueError, match="rows"):
+        DK.launch_paged(qd, k_pool, v_pool, tables[:1], pos, window=None,
+                        scale=0.25)
+    with pytest.raises(ValueError, match=r"\[B,H,1,hd\]"):
+        DK.launch(q, k, k, 3, window=None, scale=0.25)
+
+
+# -- device results and stream ordering ------------------------------------
+
+def test_cuda_device_result_is_read_after_its_producer(cuda_device):
+    """A region uploads a device tensor on its own stream only after the
+    producer's event: the producer stream sleeps before writing, so a read
+    that did not wait would see the old zeros."""
+    client = Client(n_regions=1)
+    try:
+        region = client.shell.regions[0]
+        producer = torch.cuda.Stream()
+        src = torch.zeros(1 << 20, device=cuda_device)
+        torch.cuda.synchronize()
+        with torch.cuda.stream(producer):
+            torch.cuda._sleep(200_000_000)  # ~0.1 s of spinning
+            src.fill_(1.0)
+            ev = torch.cuda.Event()
+            ev.record(producer)
+        mark_ready([src], ev)
+        with torch.cuda.stream(region.stream):
+            copy = region._upload(src)
+        region.stream.synchronize()
+        assert bool((copy == 1.0).all())
+    finally:
+        client.shutdown()
+
+
+def test_cuda_device_result_tasks_return_device_tensors(cuda_device):
+    kd = get_kernel("SeqPrefill")
+    prompt = np.zeros((1, 16), np.int32)
+    prompt[0, :3] = [7, 1, 7]
+    bundle = kd.bundle(np.zeros((1, 8), np.int32),
+                       np.zeros((1, 32), np.int32), prompt, P=16, D=32,
+                       vocab=257, prompt_len=3)
+    with Client(n_regions=1) as client:
+        out = client.submit(Task(kernel="SeqPrefill", args=bundle)).result(
+            timeout=TIMEOUT)
+    assert all(isinstance(b, torch.Tensor) and b.is_cuda for b in out)
+
+
+def test_cuda_client_stream_attention_with_forced_preemption(cuda_device):
+    """Client.stream on cuda:0 through both hand-written kernels, with the
+    first decode round preempted at its 2nd chunk: every stream equals the
+    oracle replayed on the card with the LM's own weights."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p = AttentionParams()
+    serving = {"lm": "attention", "d_model": p.d_model,
+               "vocab_size": p.vocab, "max_slots": 3, "round_tokens": 4,
+               "decode_regions": (1,), "prefill_regions": (0,)}
+    chunks = {}
+
+    def hook(region, task):
+        if task.phase != "decode" or chunks.get("preempted"):
+            return
+        chunks[task.tid] = chunks.get(task.tid, 0) + 1
+        if chunks[task.tid] == 2:
+            chunks["preempted"] = True
+            region.request_preempt()
+
+    with Client(n_regions=2, chunk_budget=1, serving=serving) as client:
+        for r in client.shell.regions:
+            r.on_chunk = hook
+        rng = np.random.default_rng(3)
+        prompts = [[int(x) for x in rng.integers(0, p.vocab, size=n)]
+                   for n in (3, 9, 20)]
+        handles = [client.stream(pr, max_new_tokens=8) for pr in prompts]
+        got = [h.result(timeout=TIMEOUT) for h in handles]
+        weights = client.serving.lm.weights
+        rep = client.serving_report()
+        modes = {r["kernel_mode"] for r in
+                 client.shell.reconfig_report()["regions"].values()}
+    for pr, toks in zip(prompts, got):
+        assert toks == attention_oracle_stream(pr, 8, p, max_slots=3,
+                                               round_tokens=4,
+                                               weights=weights)
+    assert rep["decode_preemptions"] >= 1 and rep["n_finished"] == 3
+    assert modes == {"cuda"}
