@@ -50,7 +50,31 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. attention times at those shapes: device time (``torch.profiler``) and
    CUDA-event time per launch for each kernel, its plain version and one
    ``scaled_dot_product_attention`` call (explicit boolean mask, GQA) as
-   the yardstick, beside the bound from bytes and FLOPs.
+   the yardstick, beside the bound from bytes and FLOPs;
+10. recurrence check: the RG-LRU scan (B4) and RWKV-6 (B5) kernels against
+    their plain versions at the reference's sweep shapes and the serving
+    shapes (B4 [4, 128, 4096] and [4, 1, 4096]; B5 [4, 128, 32, 64] and
+    [4, 1, 32, 64]), with a random nonzero h0 / s0 and without one
+    (h_seq, h_last within 1e-5; o, s_last within 1e-4);
+11. ``serve lm`` at full width on cuda:0, ``rwkv6-1.6b`` then
+    ``recurrentgemma-9b`` (random weights from seed 0, the depth uncut):
+    ``repro_torch.launch.serve.serve`` on 4 prompts of 128 tokens, 32
+    greedy tokens each.  The launch counters, zeroed just before, must read
+    one B5 launch per RWKV layer per step (24 x 32) and one B4 launch per
+    RG-LRU layer per step (26 x 32).  The same weights and prompts are
+    replayed with the kernels' plain versions on the card
+    (``plain_versions()``) and once more through the kernels: every greedy
+    token must be equal and the prefill logits within 1e-3.  Weight-draw
+    seconds, prefill seconds, decode tokens/s and peak device memory are
+    printed, and the device time by kernel over one traced prefill and one
+    traced decode step, with the share of B4/B5 and of the f32 GEMMs;
+12. recurrence times at the serving shapes: device time (``torch.profiler``;
+    a window that missed a kernel launch is profiled again) and CUDA-event
+    time per launch for each kernel and its plain version, and the
+    kernel's CUDA-event time with its launches queued behind a spin kernel
+    (device-bound; used where the profiler never saw a whole window),
+    beside the bound from bytes and FLOPs.  PyTorch has no single call for
+    either recurrence, so the library time is null.
 
 The last three lines of standard output are the kernel JSON record, the
 card line, and ``{"ok": true, "device": {...}}``.  The script imports
@@ -65,6 +89,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -80,7 +105,8 @@ OPS_PER_PIXEL = {"median": 72, "gaussian": 17}  # 36 min/max exchanges; 9 mul + 
 REPLACES = {"median": "src/repro/kernels/blur/kernel.py:44",
             "gaussian": "src/repro/kernels/blur/kernel.py:50"}
 TIMEOUT_S = 300
-LIBRARIES = ("blur", "flash_attention", "decode_attention")
+LIBRARIES = ("blur", "flash_attention", "decode_attention", "rglru_scan",
+             "rwkv6")
 
 # the attention LM at Qwen3-8B's attention widths (src/repro/configs/qwen3_8b.py)
 SERVING = {"lm": "attention", "d_model": 4096, "vocab_size": 151936,
@@ -96,6 +122,21 @@ FLASH_OFFSETS = (0, 64, 112)
 REPLACES_ATTN = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:24",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:22"}
+# the recurrent models, served at full width (src/repro/configs/)
+RECURRENT_ARCHS = ("rwkv6-1.6b", "recurrentgemma-9b")
+SERVE_LM = {"batch": 4, "prompt_len": 128, "gen": 32, "seed": 0}
+# the prefill logits of the kernel path against the plain replay: B5 sums
+# each readout in another order than the plain einsum, and over 24 layers
+# at d_model 2048 that moved them by 1.4e-4 in a first chip run (the
+# reduced models on the CPU agree with the reference to 4e-6)
+SCAN_TOL, RWKV_TOL, LOGIT_TOL = 1e-5, 1e-4, 1e-3
+SCAN_SHAPES = ((2, 64, 200), (1, 128, 128), (3, 33, 100))   # tests/test_kernels.py:60
+RWKV_SHAPES = ((2, 48, 3, 16), (1, 64, 2, 32), (2, 17, 4, 8))  # tests/test_kernels.py:73
+RECURRENCES = {  # name -> (kernel source, TPU kernel, counter key)
+    "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
+                   "src/repro/kernels/rglru_scan/kernel.py:33", "rglru"),
+    "rwkv6": ("src/repro_torch/csrc/rwkv6.cu",
+              "src/repro/kernels/rwkv6/kernel.py:38", "rwkv6")}
 
 
 def log(msg: str):
@@ -127,12 +168,14 @@ def cuda_time_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 3, attempts: int = 3) -> float:
+def device_ms(fn, reps: int = 3, attempts: int = 3,
+              launches: Optional[int] = None) -> float:
     """Device time of one ``fn()`` in ms: every kernel's duration in the
     window, from ``torch.profiler`` (CUDA activity only), averaged over
     ``reps`` calls after a warm-up.  A window in which the profiler saw no
-    device activity is profiled again, up to ``attempts`` times; 0.0 if it
-    never saw any."""
+    device activity, or (given ``launches``, the kernels one call runs)
+    fewer kernels than the calls ran, is profiled again, up to
+    ``attempts`` times; 0.0 if no window was whole."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -143,11 +186,38 @@ def device_ms(fn, reps: int = 3, attempts: int = 3) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                       for e in prof.key_averages())
-        if total_us > 0:
+        seen = [e for e in prof.key_averages()
+                if getattr(e, "self_device_time_total", 0.0) > 0]
+        total_us = sum(e.self_device_time_total for e in seen)
+        if total_us > 0 and (launches is None
+                             or sum(e.count for e in seen) >= launches * reps):
             return total_us / 1e3 / reps
     return 0.0
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Mean ms of ``fn()`` by CUDA events around ``reps`` calls queued
+    behind a spin kernel: the host enqueues them while the card spins, so
+    the events time the card's work back to back, not the host's launch
+    overhead.  For the profiler's missed windows."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * 2e9) + 1_000_000)  # cycles, ~2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def check(kind: str, got, want) -> float:
@@ -590,6 +660,303 @@ def time_kernel(name, n_launch, kernel, plain, library, bounds, launches,
     return rec
 
 
+def _scan_inputs(rng, dev, B, T, L):
+    import numpy as np
+    import torch
+
+    a = torch.sigmoid(torch.tensor(rng.standard_normal((B, T, L),
+                                                       dtype=np.float32),
+                                   device=dev))
+    b = torch.tensor(rng.standard_normal((B, T, L), dtype=np.float32),
+                     device=dev)
+    h0 = torch.tensor(rng.standard_normal((B, L), dtype=np.float32),
+                      device=dev)
+    return a, b, h0
+
+
+def _rwkv_inputs(rng, dev, B, T, H, hd):
+    import numpy as np
+    import torch
+
+    def randn(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape, dtype=np.float32)
+                            * scale, device=dev)
+
+    # r, k, v as the projections leave them: [B, T, H*hd] viewed per head
+    r, k, v = (randn(B, T, H * hd).view(B, T, H, hd) for _ in range(3))
+    logw = -torch.exp(randn(B, T, H, hd, scale=0.5) - 1)
+    return r, k, v, logw, randn(H, hd, scale=0.1), randn(B, H, hd, hd,
+                                                          scale=0.5)
+
+
+def recurrence_checks(dev) -> dict:
+    """Phase 10: each recurrence kernel against its plain version; returns
+    the largest error of each."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.rglru_scan import kernel as GK
+    from repro_torch.kernels.rglru_scan import ref as GR
+    from repro_torch.kernels.rwkv6 import kernel as WK
+    from repro_torch.kernels.rwkv6 import ref as WR
+
+    rng = np.random.default_rng(2)
+    B, T, L = SERVE_LM["batch"], SERVE_LM["prompt_len"], 4096
+    errs = {"rglru_scan": 0.0, "rwkv6": 0.0}
+    for shape in SCAN_SHAPES + ((B, T, L), (B, 1, L)):
+        a, b, h0 = _scan_inputs(rng, dev, *shape)
+        for init in (h0, None):
+            got = GK.launch(a, b, init)
+            torch.cuda.synchronize()
+            want = GR.rglru_scan(a, b, init)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            log(f"[rec] rglru_scan {list(shape)} h0 "
+                f"{'random' if init is not None else 'None'}: max_abs_err "
+                f"{err:.3e} (tolerance {SCAN_TOL:g})")
+            if not err <= SCAN_TOL:
+                raise AssertionError(f"rglru_scan {shape}: {err}")
+            errs["rglru_scan"] = max(errs["rglru_scan"], err)
+    for shape in RWKV_SHAPES + ((B, T, 32, 64), (B, 1, 32, 64)):
+        r, k, v, logw, u, s0 = _rwkv_inputs(rng, dev, *shape)
+        for init in (s0, None):
+            got = WK.launch(r, k, v, logw, u, init)
+            torch.cuda.synchronize()
+            want = WR.rwkv6(r, k, v, logw, u, init)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            log(f"[rec] rwkv6 {list(shape)} s0 "
+                f"{'random' if init is not None else 'None'}: max_abs_err "
+                f"{err:.3e} (tolerance {RWKV_TOL:g})")
+            if not err <= RWKV_TOL:
+                raise AssertionError(f"rwkv6 {shape}: {err}")
+            errs["rwkv6"] = max(errs["rwkv6"], err)
+    return errs
+
+
+def _numel(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _numel(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _numel(v)
+    else:
+        yield tree.numel()
+
+
+def _by_kernel(prof) -> dict:
+    return {e.key: e.self_device_time_total / 1e3
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def _log_by_kernel(tag: str, by_kernel: dict):
+    total = sum(by_kernel.values())
+    if total <= 0:
+        log(f"[{tag}] the profiler saw no device time")
+        return
+    rec = sum(ms for k, ms in by_kernel.items()
+              if "rglru_scan_kernel" in k or "rwkv6_kernel" in k)
+    gemm = sum(ms for k, ms in by_kernel.items()
+               if any(w in k.lower() for w in ("gemm", "xmma", "cutlass")))
+    log(f"[{tag}] device {total:.3f} ms: B4/B5 {rec:.3f} ms (share "
+        f"{rec / total:.4f}), f32 GEMMs {gemm:.3f} ms (share "
+        f"{gemm / total:.4f}); top kernels:")
+    for key, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[{tag}]   {ms:10.3f} ms  {key[:110]}")
+
+
+def serve_recurrent(arch: str, dev) -> dict:
+    """Phase 11 for one model: the main path through ``serve``, then the
+    plain replay and a warm kernel pass on the same weights and prompts,
+    then one traced prefill and one traced decode step.  Returns the
+    launches of the main path."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.native import plain_versions
+    from repro_torch.kernels.rglru_scan import kernel as GK
+    from repro_torch.kernels.rwkv6 import kernel as WK
+    from repro_torch.launch import serve as S
+    from repro_torch.models.lm import make_decode_step, make_prefill_step
+
+    cfg = get_config(arch)
+    kinds = cfg.layer_kinds
+    want = {"rglru_scan": kinds.count("rglru") * SERVE_LM["gen"],
+            "rwkv6": kinds.count("rwkv") * SERVE_LM["gen"]}
+    log(f"[lm {arch}] {cfg.n_layers} layers, d_model {cfg.d_model}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    GK.LAUNCHES.reset()
+    WK.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    toks = S.serve(cfg, **SERVE_LM)          # cuda:0, the entry point
+    serve_s = time.perf_counter() - t0
+    launches = {"rglru_scan": GK.LAUNCHES.total(),
+                "rwkv6": WK.LAUNCHES.total()}
+    log(f"[lm {arch}] serve: {serve_s:.3f} s end to end (weights drawn on "
+        f"the card included); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches "
+        f"{launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"{arch}: launches {launches} != {want}")
+    if toks.shape != (SERVE_LM["batch"], SERVE_LM["gen"]) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{arch}: bad tokens {toks.shape}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, prompts = S.draw(cfg, batch=SERVE_LM["batch"],
+                             prompt_len=SERVE_LM["prompt_len"],
+                             seed=SERVE_LM["seed"], device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_params = sum(_numel(params))
+    with plain_versions():
+        plain = S.generate(params, prompts, cfg, gen=SERVE_LM["gen"])
+    if GK.LAUNCHES.total() != launches["rglru_scan"] or \
+            WK.LAUNCHES.total() != launches["rwkv6"]:
+        raise AssertionError("the plain replay launched a kernel")
+    warm = S.generate(params, prompts, cfg, gen=SERVE_LM["gen"])
+    logit_err = float((warm["logits"] - plain["logits"]).abs().max())
+    n_dec = SERVE_LM["batch"] * (SERVE_LM["gen"] - 1)
+    for tag, run in (("plain", plain), ("kernels, warm", warm)):
+        log(f"[lm {arch}] {tag}: prefill {run['prefill_s']:.4f} s, decode "
+            f"{n_dec / run['decode_s']:.3f} tokens/s "
+            f"({run['decode_s']:.4f} s for {SERVE_LM['gen'] - 1} steps)")
+    log(f"[lm {arch}] {n_params / 1e9:.3f} B parameters ({n_params * 4 / 1e9:.3f}"
+        f" GB f32) drawn on the card in {draw_s:.3f} s; prefill logits "
+        f"kernels vs plain max_abs_err {logit_err:.3e} (tolerance "
+        f"{LOGIT_TOL:g}; max |logit| "
+        f"{float(plain['logits'].abs().max()):.3f}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    log(f"[lm {arch}] tokens[0]: {toks[0].tolist()}")
+    if not (np.array_equal(toks, plain["tokens"])
+            and np.array_equal(toks, warm["tokens"])):
+        raise AssertionError(f"{arch}: greedy tokens differ from the plain "
+                             f"replay")
+    if not logit_err <= LOGIT_TOL:
+        raise AssertionError(f"{arch}: prefill logits {logit_err}")
+    log(f"[lm {arch}] all {toks.size} greedy tokens equal the plain replay")
+
+    prefill = make_prefill_step(cfg, q_chunk=min(64, SERVE_LM["prompt_len"]))
+    decode = make_decode_step(cfg)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cache, last = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+    _log_by_kernel(f"lm {arch}, traced prefill", _by_kernel(prof))
+    tok = torch.argmax(last[:, :cfg.vocab_size], -1).to(torch.int32)[:, None]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode(params, cache, tok)
+        torch.cuda.synchronize()
+    _log_by_kernel(f"lm {arch}, traced decode step", _by_kernel(prof))
+    del params, prompts, plain, warm, cache, last
+    torch.cuda.empty_cache()
+    return launches
+
+
+def recurrent_phases(dev, card: str) -> list:
+    """Phases 10-12; returns the two kernel records."""
+    import numpy as np
+
+    from repro_torch.kernels.rglru_scan import kernel as GK
+    from repro_torch.kernels.rglru_scan import ref as GR
+    from repro_torch.kernels.rwkv6 import kernel as WK
+    from repro_torch.kernels.rwkv6 import ref as WR
+
+    errs = recurrence_checks(dev)
+    launches = {"rglru_scan": 0, "rwkv6": 0}
+    for arch in RECURRENT_ARCHS:
+        for name, n in serve_recurrent(arch, dev).items():
+            launches[name] += n
+
+    # 12. times at the serving shapes, as the main path calls the kernels:
+    # the prefill from a zero state (None), the decode from a carried one
+    rng = np.random.default_rng(3)
+    B, T, gen, f32 = (SERVE_LM["batch"], SERVE_LM["prompt_len"],
+                      SERVE_LM["gen"], 4)
+    shapes = {"rglru_scan": {"prefill": (B, T, 4096), "decode": (B, 1, 4096)},
+              "rwkv6": {"prefill": (B, T, 32, 64), "decode": (B, 1, 32, 64)}}
+    records = []
+    for name, per_shape in shapes.items():
+        src, replaces, _ = RECURRENCES[name]
+        mix = {"prefill": 1, "decode": gen - 1}  # launches per layer
+        timed = {}
+        for phase, shape in per_shape.items():
+            state = phase == "decode"
+            if name == "rglru_scan":
+                a, b, h0 = _scan_inputs(rng, dev, *shape)
+                h0 = h0 if state else None
+                Bs, Ts, L = shape
+                nbytes = (3 * Bs * Ts * L + (2 if state else 1) * Bs * L) * f32
+                ops = 2 * Bs * Ts * L
+
+                def kernel(a=a, b=b, h0=h0):
+                    GK.launch(a, b, h0)
+
+                def plain(a=a, b=b, h0=h0):
+                    GR.rglru_scan(a, b, h0)
+            else:
+                r, k, v, logw, u, s0 = _rwkv_inputs(rng, dev, *shape)
+                s0 = s0 if state else None
+                Bs, Ts, H, hd = shape
+                nbytes = (5 * Bs * Ts * H * hd + H * hd
+                          + (2 if state else 1) * Bs * H * hd * hd) * f32
+                ops = 5 * Bs * H * Ts * hd * hd
+
+                def kernel(r=r, k=k, v=v, logw=logw, u=u, s0=s0):
+                    WK.launch(r, k, v, logw, u, s0)
+
+                def plain(r=r, k=k, v=v, logw=logw, u=u, s0=s0):
+                    WR.rwkv6(r, k, v, logw, u, s0)
+            # the kernel is one launch per call: a window that saw fewer
+            # is profiled again, and if none is whole the kernel's time is
+            # the one queued behind a spin (the plain version's: the
+            # back-to-back time, an upper bound)
+            dev_ms = {"kernel": device_ms(kernel, reps=10, launches=1),
+                      "plain": device_ms(plain)}
+            wall_ms = {"kernel": cuda_time_ms(kernel, reps=50),
+                       "plain": cuda_time_ms(plain, reps=5)}
+            queued = queued_ms(kernel)
+            log(f"[time] {name} {phase} {list(shape)} kernel: CUDA events "
+                f"queued behind a spin kernel {queued:.6f} ms per launch")
+            for arm in dev_ms:
+                if dev_ms[arm] <= 0.0:
+                    dev_ms[arm] = queued if arm == "kernel" else wall_ms[arm]
+                    log(f"[time] {name} {phase} {arm}: the profiler missed "
+                        f"launches; using the CUDA-event time")
+                log(f"[time] {name} {phase} {list(shape)} {arm}: device "
+                    f"{dev_ms[arm]:.6f} ms per launch; wall (CUDA events, "
+                    f"back-to-back) {wall_ms[arm]:.6f} ms")
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / F32_OPS_PER_S * 1e3
+            log(f"[time] {name} {phase}: bound {max(bytes_ms, ops_ms):.6f} "
+                f"ms (bytes {nbytes / 1e6:.3f} MB -> {bytes_ms:.6f} ms; "
+                f"{ops / 1e6:.3f} MFLOP -> {ops_ms:.6f} ms)")
+            timed[phase] = (dev_ms["kernel"], dev_ms["plain"], bytes_ms,
+                            ops_ms)
+        # per launch over the main path's mix: 1 prefill and gen-1 decode
+        # launches per layer
+        n = sum(mix.values())
+        mean = [sum(mix[p] * timed[p][i] for p in mix) / n for i in range(4)]
+        rec = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": errs[name], "ms": mean[0], "plain_ms": mean[1],
+               "bound_ms": sum(mix[p] * max(timed[p][2], timed[p][3])
+                               for p in mix) / n,
+               "bound_by": "bytes" if mean[2] >= mean[3] else "operations",
+               "library_ms": None}
+        log(f"[time] {name}: {rec['ms']:.6f} ms device per launch over the "
+            f"path's mix (1 prefill : {gen - 1} decode); bound "
+            f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}); plain "
+            f"{rec['plain_ms']:.6f} ms; no library call computes it")
+        records.append(rec)
+    log(f"[time] recurrence bounds: {HBM_BYTES_PER_S / 1e12:g} TB/s, "
+        f"{F32_OPS_PER_S / 1e12:g} TFLOP/s f32 (H100 SXM data sheet); card "
+        f"{card}")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -773,6 +1140,7 @@ def main() -> int:
         f"time per 3-iteration task {records[0]['ms'] * 3 * n_rb:.3f} ms")
 
     records += attention_phases(dev, card)
+    records += recurrent_phases(dev, card)
 
     log(json.dumps({"kernels": records}))
     log(card)

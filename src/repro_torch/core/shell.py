@@ -33,8 +33,9 @@ def resolve_devices(devices=None) -> List[torch.device]:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "repro_torch runs on cuda:0 by default and CUDA is not "
-                "available; pass devices=['cpu'] (Client(device='cpu')) to "
-                "run the plain PyTorch kernels on the CPU")
+                "available; pass devices=['cpu'] (Client(device='cpu'), "
+                "serve lm --device cpu) to run the plain PyTorch kernels on "
+                "the CPU")
         return [torch.device("cuda", 0)]
     return [torch.device(d) for d in devices]
 

@@ -11,9 +11,17 @@ file carries a hash of its source, so an edited source is rebuilt and a
 stale library is never loaded.
 
 Nothing here runs at import: importing this module needs no CUDA toolkit.
+
+``plain_versions()`` is the one scoped override of the device dispatch:
+inside it, the recurrence wrappers (``rglru_scan``, ``rwkv6``) run their
+plain PyTorch versions on CUDA tensors too, so a caller can replay the
+main path with the yardstick on the card.  It is a context variable: it
+holds for the thread (or task) that entered it and nowhere else.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -24,7 +32,7 @@ import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Iterator, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -88,6 +96,42 @@ def load_libraries(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         libs = list(pool.map(load_library, names))
     return dict(zip(names, libs))
+
+
+_plain = contextvars.ContextVar("repro_torch_plain_versions", default=False)
+
+
+@contextlib.contextmanager
+def plain_versions() -> Iterator[None]:
+    """Run the plain versions on CUDA tensors within this block (and this
+    thread) only."""
+    token = _plain.set(True)
+    try:
+        yield
+    finally:
+        _plain.reset(token)
+
+
+def use_kernel(t) -> bool:
+    """Whether a wrapper given tensor ``t`` launches its CUDA kernel: ``t``
+    lies on a CUDA device and no ``plain_versions()`` block is open."""
+    return t.is_cuda and not _plain.get()
+
+
+def check_tensor(t, what: str, shape, device, dtype):
+    """Raise unless ``t`` is a CUDA tensor on ``device`` of ``dtype`` and
+    ``shape`` with unit stride on its last dim: what a kernel that reads
+    the other dims by their strides takes."""
+    if not t.is_cuda:
+        raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
+    if t.device != device:
+        raise ValueError(f"{what} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape) or t.stride(-1) != 1:
+        raise ValueError(f"{what} must be {tuple(shape)} with unit stride on "
+                         f"the last dim, got shape {tuple(t.shape)} strides "
+                         f"{t.stride()}")
 
 
 class LaunchCounter:

@@ -1,7 +1,8 @@
 """The port on the card: the hand-written CUDA kernels (blur, flash
-attention, decode attention) against their plain PyTorch versions, the
-Client's preempt/resume path through CUDA streams, and token serving on
-the attention LM.  A CUDA kernel has no CPU mode, so every test here carries the
+attention, decode attention, RG-LRU scan, RWKV-6) against their plain
+PyTorch versions, the Client's preempt/resume path through CUDA streams,
+token serving on the attention LM, and ``serve lm`` on the recurrent
+models.  A CUDA kernel has no CPU mode, so every test here carries the
 ``cuda`` marker and skips without a card.  This file imports nothing of
 the JAX package, so it runs where JAX is absent:
 
@@ -26,6 +27,13 @@ from repro_torch.kernels.decode_attention import ref as dref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
+from repro_torch.kernels.rglru_scan import kernel as GK  # noqa: E402
+from repro_torch.kernels.rglru_scan import ops as gops  # noqa: E402
+from repro_torch.kernels.rglru_scan import ref as gref  # noqa: E402
+from repro_torch.kernels.rwkv6 import kernel as WK  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as wops  # noqa: E402
+from repro_torch.kernels.rwkv6 import ref as wref  # noqa: E402
+from repro_torch.launch import serve as S  # noqa: E402
 from repro_torch.serving.attention import (AttentionParams,  # noqa: E402
                                            attention_oracle_stream)
 
@@ -34,6 +42,8 @@ GAUSS_TOL = 1e-6  # powers-of-two weights: products exact, sums in order
 # (tiles, fmaf, warp butterflies); f32 tolerance as the reference's tests,
 # bf16 for one bf16 rounding of the output
 F32_TOL, BF16_TOL = 2e-5, 2e-2
+# recurrences: the reference's tolerances (tests/test_kernels.py)
+SCAN_TOL, RWKV_TOL = 1e-5, 1e-4
 TIMEOUT = 120
 
 pytestmark = pytest.mark.cuda
@@ -359,3 +369,113 @@ def test_cuda_client_stream_attention_with_forced_preemption(cuda_device):
                                                weights=weights)
     assert rep["decode_preemptions"] >= 1 and rep["n_finished"] == 3
     assert modes == {"cuda"}
+
+
+# -- recurrence kernels (B4, B5) and serve lm ---------------------------------
+
+@pytest.mark.parametrize("B,T,L", [(2, 64, 200), (1, 128, 128), (3, 33, 100),
+                                   (4, 128, 4096), (4, 1, 4096)])
+def test_cuda_rglru_scan_matches_plain_version(cuda_device, B, T, L):
+    """The reference's sweep shapes, then the serving prefill and decode
+    shapes of recurrentgemma-9b, with a nonzero h0 and without one."""
+    rng = np.random.default_rng(B * T + L)
+    a = torch.sigmoid(_randn(rng, (B, T, L), cuda_device))
+    b = _randn(rng, (B, T, L), cuda_device)
+    h0 = _randn(rng, (B, L), cuda_device)
+    for init in (h0, None):
+        before = GK.LAUNCHES["rglru"]
+        hs, h_last = gops.rglru_scan(a, b, init)
+        torch.cuda.synchronize()
+        assert GK.LAUNCHES["rglru"] == before + 1
+        want_hs, want_last = gref.rglru_scan(a, b, init)
+        torch.testing.assert_close(hs, want_hs, rtol=0, atol=SCAN_TOL)
+        torch.testing.assert_close(h_last, want_last, rtol=0, atol=SCAN_TOL)
+
+
+@pytest.mark.parametrize("B,T,H,hd", [(2, 48, 3, 16), (1, 64, 2, 32),
+                                      (2, 17, 4, 8), (4, 128, 32, 64),
+                                      (4, 1, 32, 64), (1, 5, 2, 40)])
+def test_cuda_rwkv6_matches_plain_version(cuda_device, B, T, H, hd):
+    """The reference's sweep shapes, rwkv6-1.6b's serving prefill and
+    decode shapes, and a head dim that is no power of two; with a nonzero
+    s0 and without one, the inputs strided as the projections leave them."""
+    rng = np.random.default_rng(B * T + H * hd)
+    r, k, v = (_randn(rng, (B, T, H * hd), cuda_device).view(B, T, H, hd)
+               for _ in range(3))
+    logw = -torch.exp(_randn(rng, (B, T, H, hd), cuda_device) * 0.5 - 1)
+    u = _randn(rng, (H, hd), cuda_device) * 0.1
+    s0 = _randn(rng, (B, H, hd, hd), cuda_device) * 0.5
+    for init in (s0, None):
+        before = WK.LAUNCHES["rwkv6"]
+        o, s_last = wops.rwkv6(r, k, v, logw, u, init)
+        torch.cuda.synchronize()
+        assert WK.LAUNCHES["rwkv6"] == before + 1
+        want_o, want_s = wref.rwkv6(r, k, v, logw, u, init)
+        torch.testing.assert_close(o, want_o, rtol=0, atol=RWKV_TOL)
+        torch.testing.assert_close(s_last, want_s, rtol=0, atol=RWKV_TOL)
+
+
+def test_cuda_recurrence_wrappers_reject_bad_inputs(cuda_device):
+    rng = np.random.default_rng(12)
+    a = _randn(rng, (2, 5, 40), cuda_device)
+    with pytest.raises(ValueError, match="CUDA"):
+        GK.launch(a.cpu(), a.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        GK.launch(a, a, torch.zeros(2, 40))
+    with pytest.raises(TypeError):
+        GK.launch(a.double(), a.double())
+    with pytest.raises(ValueError, match="unit stride"):
+        GK.launch(a.transpose(1, 2).contiguous().transpose(1, 2), a)
+    r = _randn(rng, (1, 4, 2, 8), cuda_device)
+    u = _randn(rng, (2, 8), cuda_device)
+    with pytest.raises(ValueError, match="CUDA"):
+        WK.launch(r.cpu(), r, r, r, u)
+    with pytest.raises(ValueError, match="CUDA"):
+        WK.launch(r, r, r, r, u.cpu())
+    big = _randn(rng, (1, 2, 1, 80), cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        WK.launch(big, big, big, big, _randn(rng, (1, 80), cuda_device))
+    with gops.plain_versions():  # the override launches nothing
+        before = (GK.LAUNCHES.total(), WK.LAUNCHES.total())
+        gops.rglru_scan(a, a)
+        wops.rwkv6(r, r, r, -r.abs(), u)
+        assert (GK.LAUNCHES.total(), WK.LAUNCHES.total()) == before
+
+
+@pytest.mark.parametrize("arch,per_step", [("rwkv6-1.6b", {"rwkv6": 2}),
+                                           ("recurrentgemma-9b",
+                                            {"rglru": 4})])
+def test_cuda_serve_lm_reduced_matches_cpu(cuda_device, arch, per_step):
+    """``serve lm`` on cuda:0 (the default) at reduced width: the same
+    tokens as the plain path on the card, exact launch counts (one per
+    recurrent layer per step), and the same tokens as the CPU path on the
+    same weights."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced()
+    gen, batch, T = 6, 2, 24
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                                (batch, T)).astype(np.int32)
+    GK.LAUNCHES.reset()
+    WK.LAUNCHES.reset()
+    toks = S.serve(cfg, batch=batch, prompt_len=T, gen=gen, prompts=prompts)
+    assert {"rglru": GK.LAUNCHES["rglru"], "rwkv6": WK.LAUNCHES["rwkv6"]} == {
+        "rglru": per_step.get("rglru", 0) * gen,
+        "rwkv6": per_step.get("rwkv6", 0) * gen}
+    params, _ = S.draw(cfg, batch=batch, prompt_len=T, seed=0,
+                       device=cuda_device)
+    with gops.plain_versions():
+        plain = S.generate(params, torch.tensor(prompts, device=cuda_device),
+                           cfg, gen=gen)
+    np.testing.assert_array_equal(toks, plain["tokens"])
+    cpu = S.generate(_to_cpu(params), torch.tensor(prompts), cfg, gen=gen)
+    np.testing.assert_array_equal(toks, cpu["tokens"])
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
