@@ -52,10 +52,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``scaled_dot_product_attention`` call (explicit boolean mask, GQA) as
    the yardstick, beside the bound from bytes and FLOPs;
 10. recurrence check: the RG-LRU scan (B4) and RWKV-6 (B5) kernels against
-    their plain versions at the reference's sweep shapes and the serving
-    shapes (B4 [4, 128, 4096] and [4, 1, 4096]; B5 [4, 128, 32, 64] and
-    [4, 1, 32, 64]), with a random nonzero h0 / s0 and without one
-    (h_seq, h_last within 1e-5; o, s_last within 1e-4);
+    their plain versions at the reference's sweep shapes, the edges of the
+    kernels' segments, tiles, chunks and column blocks (``SCAN_SHAPES``,
+    ``RWKV_SHAPES``) and the serving shapes (B4 [4, 128, 4096] and
+    [4, 1, 4096]; B5 [4, 128, 32, 64] and [4, 1, 32, 64]), with a random
+    nonzero h0 / s0 and without one (h_seq, h_last within 1e-5; o, s_last
+    within 1e-4);
 11. ``serve lm`` at full width on cuda:0, ``rwkv6-1.6b`` then
     ``recurrentgemma-9b`` (random weights from seed 0, the depth uncut):
     ``repro_torch.launch.serve.serve`` on 4 prompts of 128 tokens, 32
@@ -67,14 +69,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     token must be equal and the prefill logits within 1e-3.  Weight-draw
     seconds, prefill seconds, decode tokens/s and peak device memory are
     printed, and the device time by kernel over one traced prefill and one
-    traced decode step, with the share of B4/B5 and of the f32 GEMMs;
+    traced decode step, with the share of B4/B5 and of the f32 GEMMs and
+    the in-path time per launch of B4/B5;
 12. recurrence times at the serving shapes: device time (``torch.profiler``;
     a window that missed a kernel launch is profiled again) and CUDA-event
     time per launch for each kernel and its plain version, and the
     kernel's CUDA-event time with its launches queued behind a spin kernel
     (device-bound; used where the profiler never saw a whole window),
-    beside the bound from bytes and FLOPs.  PyTorch has no single call for
-    either recurrence, so the library time is null.
+    beside the bound from bytes and FLOPs.  Each kernel is timed warm (the
+    same inputs again, which stay in the 50 MB L2) and cold (rotating over
+    at least three input sets of more than 100 MB together, as the main
+    path finds its inputs: written by the projections, not yet read).
+    PyTorch has no single call for either recurrence, so the library time
+    is null.
 
 The last three lines of standard output are the kernel JSON record, the
 card line, and ``{"ok": true, "device": {...}}``.  The script imports
@@ -83,7 +90,10 @@ result.
 """
 from __future__ import annotations
 
+import itertools
 import json
+import math
+import re
 import subprocess
 import sys
 import threading
@@ -130,8 +140,19 @@ SERVE_LM = {"batch": 4, "prompt_len": 128, "gen": 32, "seed": 0}
 # at d_model 2048 that moved them by 1.4e-4 in a first chip run (the
 # reduced models on the CPU agree with the reference to 4e-6)
 SCAN_TOL, RWKV_TOL, LOGIT_TOL = 1e-5, 1e-4, 1e-3
-SCAN_SHAPES = ((2, 64, 200), (1, 128, 128), (3, 33, 100))   # tests/test_kernels.py:60
-RWKV_SHAPES = ((2, 48, 3, 16), (1, 64, 2, 32), (2, 17, 4, 8))  # tests/test_kernels.py:73
+# the reference's sweep shapes (tests/test_kernels.py:60, :73), then the
+# edges of the kernels' designs: B4's segments and time tiles (T 2, 17,
+# 129, 2048) and channel stripes (L 100: a channel a thread; 4096: a float4);
+# B5's 16-step chunks (T 15, 16, 17, 33, 300) and 16-column blocks (hd 8,
+# 16, 40, 64)
+SCAN_SHAPES = ((2, 64, 200), (1, 128, 128), (3, 33, 100), (2, 2, 100),
+               (2, 17, 100), (2, 129, 4096), (1, 2048, 100),
+               (2, 2048, 4096))
+RWKV_SHAPES = ((2, 48, 3, 16), (1, 64, 2, 32), (2, 17, 4, 8), (2, 15, 4, 64),
+               (2, 16, 4, 64), (2, 17, 4, 64), (2, 33, 3, 64),
+               (1, 300, 2, 64), (2, 33, 2, 8), (2, 33, 2, 16),
+               (2, 33, 2, 40))
+L2_BYTES = 50e6             # H100 SXM L2; the cold timings rotate past it
 RECURRENCES = {  # name -> (kernel source, TPU kernel, counter key)
     "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan/kernel.py:33", "rglru"),
@@ -744,17 +765,27 @@ def _numel(tree):
 
 
 def _by_kernel(prof) -> dict:
-    return {e.key: e.self_device_time_total / 1e3
+    return {e.key: (e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
-def _log_by_kernel(tag: str, by_kernel: dict):
+# the recurrence kernels' names as the profiler shows them (B4 has a
+# one-step kernel for decode and a segmented one for longer T)
+RECURRENCE_KERNEL = re.compile(r"(rglru_\w+_kernel|rwkv6_kernel)(<\w+>)?")
+
+
+def _log_by_kernel(tag: str, by_kernel_counts: dict):
+    by_kernel = {k: ms for k, (ms, _) in by_kernel_counts.items()}
+    for k, (ms, n) in by_kernel_counts.items():
+        found = RECURRENCE_KERNEL.search(k)
+        if found:
+            log(f"[{tag}] in the path: {found.group(0)} {n} launches, "
+                f"{ms * 1e3 / n:.3f} us device per launch")
     total = sum(by_kernel.values())
     if total <= 0:
         log(f"[{tag}] the profiler saw no device time")
         return
-    rec = sum(ms for k, ms in by_kernel.items()
-              if "rglru_scan_kernel" in k or "rwkv6_kernel" in k)
+    rec = sum(ms for k, ms in by_kernel.items() if RECURRENCE_KERNEL.search(k))
     gemm = sum(ms for k, ms in by_kernel.items()
                if any(w in k.lower() for w in ("gemm", "xmma", "cutlass")))
     log(f"[{tag}] device {total:.3f} ms: B4/B5 {rec:.3f} ms (share "
@@ -885,30 +916,39 @@ def recurrent_phases(dev, card: str) -> list:
         for phase, shape in per_shape.items():
             state = phase == "decode"
             if name == "rglru_scan":
-                a, b, h0 = _scan_inputs(rng, dev, *shape)
-                h0 = h0 if state else None
                 Bs, Ts, L = shape
                 nbytes = (3 * Bs * Ts * L + (2 if state else 1) * Bs * L) * f32
+
+                def inputs():
+                    a, b, h0 = _scan_inputs(rng, dev, *shape)
+                    return a, b, h0 if state else None
                 ops = 2 * Bs * Ts * L
-
-                def kernel(a=a, b=b, h0=h0):
-                    GK.launch(a, b, h0)
-
-                def plain(a=a, b=b, h0=h0):
-                    GR.rglru_scan(a, b, h0)
+                launch, plain_fn = GK.launch, GR.rglru_scan
             else:
-                r, k, v, logw, u, s0 = _rwkv_inputs(rng, dev, *shape)
-                s0 = s0 if state else None
                 Bs, Ts, H, hd = shape
                 nbytes = (5 * Bs * Ts * H * hd + H * hd
                           + (2 if state else 1) * Bs * H * hd * hd) * f32
+
+                def inputs():
+                    r, k, v, logw, u, s0 = _rwkv_inputs(rng, dev, *shape)
+                    return r, k, v, logw, u, s0 if state else None
                 ops = 5 * Bs * H * Ts * hd * hd
+                launch, plain_fn = WK.launch, WR.rwkv6
+            args = inputs()
 
-                def kernel(r=r, k=k, v=v, logw=logw, u=u, s0=s0):
-                    WK.launch(r, k, v, logw, u, s0)
+            def kernel(args=args, launch=launch):
+                launch(*args)
 
-                def plain(r=r, k=k, v=v, logw=logw, u=u, s0=s0):
-                    WR.rwkv6(r, k, v, logw, u, s0)
+            def plain(args=args, plain_fn=plain_fn):
+                plain_fn(*args)
+
+            # cold: rotate over input sets of more than twice the L2
+            n_sets = max(3, math.ceil(2 * L2_BYTES / nbytes))
+            sets = [inputs() for _ in range(n_sets)]
+            turn = itertools.cycle(sets)
+
+            def kernel_cold(turn=turn, launch=launch):
+                launch(*next(turn))
             # the kernel is one launch per call: a window that saw fewer
             # is profiled again, and if none is whole the kernel's time is
             # the one queued behind a spin (the plain version's: the
@@ -920,6 +960,12 @@ def recurrent_phases(dev, card: str) -> list:
             queued = queued_ms(kernel)
             log(f"[time] {name} {phase} {list(shape)} kernel: CUDA events "
                 f"queued behind a spin kernel {queued:.6f} ms per launch")
+            cold_dev = device_ms(kernel_cold, reps=n_sets, launches=1)
+            cold_queued = queued_ms(kernel_cold, reps=n_sets)
+            log(f"[time] {name} {phase} {list(shape)} kernel, cold ({n_sets} "
+                f"rotated input sets, {n_sets * nbytes / 1e6:.1f} MB): device "
+                f"{cold_dev:.6f} ms per launch (0 if the profiler missed "
+                f"launches); queued behind a spin kernel {cold_queued:.6f} ms")
             for arm in dev_ms:
                 if dev_ms[arm] <= 0.0:
                     dev_ms[arm] = queued if arm == "kernel" else wall_ms[arm]

@@ -216,7 +216,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 def get_config(name: str) -> ModelConfig:
-    # Late import so "import repro.configs.base" has no side effects.
+    # Late import so "import repro_torch.configs.base" has no side effects.
     from repro_torch import configs as _c  # noqa: F401
 
     if name not in _REGISTRY:

@@ -373,14 +373,33 @@ def test_cuda_client_stream_attention_with_forced_preemption(cuda_device):
 
 # -- recurrence kernels (B4, B5) and serve lm ---------------------------------
 
-@pytest.mark.parametrize("B,T,L", [(2, 64, 200), (1, 128, 128), (3, 33, 100),
-                                   (4, 128, 4096), (4, 1, 4096)])
-def test_cuda_rglru_scan_matches_plain_version(cuda_device, B, T, L):
-    """The reference's sweep shapes, then the serving prefill and decode
-    shapes of recurrentgemma-9b, with a nonzero h0 and without one."""
+@pytest.mark.parametrize("B,T,L,kind", [
+    (2, 64, 200, "sigmoid"), (1, 128, 128, "sigmoid"), (3, 33, 100, "sigmoid"),
+    (4, 128, 4096, "sigmoid"), (4, 1, 4096, "sigmoid"),
+    (2, 1, 100, "sigmoid"), (2, 2, 100, "sigmoid"), (2, 17, 100, "sigmoid"),
+    (2, 129, 4096, "sigmoid"), (1, 2048, 100, "sigmoid"),
+    (2, 2048, 4096, "sigmoid"), (2, 17, 4096, "0/1"), (2, 129, 100, "0/1"),
+    (2, 129, 4096, "strided"), (2, 17, 100, "strided")])
+def test_cuda_rglru_scan_matches_plain_version(cuda_device, B, T, L, kind):
+    """The reference's sweep shapes, the serving prefill and decode shapes
+    of recurrentgemma-9b, and the edges of the kernel's segments and time
+    tiles (T 1, 2, 17, 129, 2048) and of its channel stripes (L 100, with
+    one thread a channel; L 4096, one float4 a thread): gates a = 0 and
+    a = 1 exactly among the others ("0/1"), and a, b read in place from
+    wider rows ("strided": float4 where L allows, misaligned otherwise);
+    with a nonzero h0 and without one."""
     rng = np.random.default_rng(B * T + L)
     a = torch.sigmoid(_randn(rng, (B, T, L), cuda_device))
     b = _randn(rng, (B, T, L), cuda_device)
+    if kind == "0/1":
+        pick = torch.tensor(rng.random((B, T, L)), device=cuda_device)
+        a = torch.where(pick < 0.25, 0.0, torch.where(pick < 0.5, 1.0, a))
+    elif kind == "strided":
+        off = 0 if L % 4 == 0 else 1
+        wide_a = torch.sigmoid(_randn(rng, (B, T, L + 8), cuda_device))
+        a, b = wide_a[..., off:off + L], _randn(
+            rng, (B, T, L + 8), cuda_device)[..., off:off + L]
+        assert GK.vector_width(a, b) == (4 if off == 0 else 1)
     h0 = _randn(rng, (B, L), cuda_device)
     for init in (h0, None):
         before = GK.LAUNCHES["rglru"]
@@ -392,17 +411,27 @@ def test_cuda_rglru_scan_matches_plain_version(cuda_device, B, T, L):
         torch.testing.assert_close(h_last, want_last, rtol=0, atol=SCAN_TOL)
 
 
-@pytest.mark.parametrize("B,T,H,hd", [(2, 48, 3, 16), (1, 64, 2, 32),
-                                      (2, 17, 4, 8), (4, 128, 32, 64),
-                                      (4, 1, 32, 64), (1, 5, 2, 40)])
-def test_cuda_rwkv6_matches_plain_version(cuda_device, B, T, H, hd):
+@pytest.mark.parametrize("B,T,H,hd,decay", [
+    (2, 48, 3, 16, "random"), (1, 64, 2, 32, "random"), (2, 17, 4, 8, "random"),
+    (4, 128, 32, 64, "random"), (4, 1, 32, 64, "random"),
+    (1, 5, 2, 40, "random"), (2, 1, 4, 64, "random"), (2, 15, 4, 64, "random"),
+    (2, 16, 4, 64, "random"), (2, 17, 4, 64, "random"),
+    (2, 33, 3, 64, "random"), (1, 300, 2, 64, "random"),
+    (2, 33, 2, 8, "random"), (2, 33, 2, 16, "random"),
+    (2, 33, 2, 40, "random"), (2, 33, 2, 64, "w=0"), (2, 33, 2, 64, "w=1")])
+def test_cuda_rwkv6_matches_plain_version(cuda_device, B, T, H, hd, decay):
     """The reference's sweep shapes, rwkv6-1.6b's serving prefill and
-    decode shapes, and a head dim that is no power of two; with a nonzero
-    s0 and without one, the inputs strided as the projections leave them."""
+    decode shapes, the edges of the kernel's 16-step chunks (T 1, 15, 16,
+    17, 33, 300) and of its 16-column blocks (hd 8, 16, 40, 64; 40 is no
+    power of two), and the extreme decays logw = -80 (w about 0) and
+    logw = 0 (w = 1); with a nonzero s0 and without one, the inputs
+    strided as the projections leave them."""
     rng = np.random.default_rng(B * T + H * hd)
     r, k, v = (_randn(rng, (B, T, H * hd), cuda_device).view(B, T, H, hd)
                for _ in range(3))
     logw = -torch.exp(_randn(rng, (B, T, H, hd), cuda_device) * 0.5 - 1)
+    if decay != "random":
+        logw = torch.full_like(logw, -80.0 if decay == "w=0" else 0.0)
     u = _randn(rng, (H, hd), cuda_device) * 0.1
     s0 = _randn(rng, (B, H, hd, hd), cuda_device) * 0.5
     for init in (s0, None):
