@@ -8,23 +8,32 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` builds every ``src/repro_torch/csrc/*.cu`` (blur, flash
-   attention, decode attention) for ``sm_90a``, one process per source, all
-   at once, and prints each kernel's register and spill lines;
+   attention, decode attention, RG-LRU scan, RWKV-6) for ``sm_90a``, one
+   process per source, all at once, and prints each kernel's register and
+   spill lines;
 3. kernel vs plain version on the card: median (bitwise) and gaussian
-   (max abs difference <= 1e-6) on a [34, 4098] and a [34, 130] row block,
-   then a whole 3-iteration median image run through the task code;
+   (max abs difference <= 1e-6) on runs of 1, 7 and 8 row blocks at width
+   4096 and one block at widths 128, 130 and 129 (``BLUR_CHECKS``), then a
+   whole 3-iteration median image run through the task code;
 4. main path: ``repro_torch.Client(n_regions=2)`` on cuda:0 serves two
    priority-4 MedianBlur tasks (iters=3) on 16-megapixel frames; once both
    have retired a chunk a priority-0 GaussianBlur arrives and preempts one.
-   Results must equal the plain version run on the card, and the kernel's
-   launch counter, zeroed just before, must read sum(iters x 128) after;
-5. times after warm-up, per launch and per whole image: device time from
-   ``torch.profiler`` (the JSON's numbers) and back-to-back wall time from
-   CUDA events (which includes the host's launch overhead), for the
-   kernel, its plain version and (gaussian) one ``conv2d`` call, beside
-   the memory bound; then the main path's workload once more without the
-   injected slowdown, end to end, and the host<->device copies one task
-   pays outside its chunks;
+   Results must equal the plain version run on the card.  The kernel's
+   row-block counter, zeroed just before, must read sum(iters x 128)
+   exactly after (every row block ran once through the kernel), and its
+   launch counter at least ceil(row blocks / budget) a kind and at most 2
+   per chunk retired (the task layer launches one run of row blocks per
+   pass a chunk touches);
+5. times after warm-up at the main path's launch shape ([258, 4098] -> [256,
+   4096], 8 row blocks) and at one row block ([34, 4098]), per launch, per
+   row block and per whole image of 16 runs: device time from
+   ``torch.profiler`` (the JSON's numbers; where it missed the launches,
+   the time queued behind a spin kernel) and back-to-back wall time from
+   CUDA events, for the kernel, its plain version and (gaussian) one
+   ``conv2d`` call at the run shape, beside the memory bound, and the run
+   under each of the kernel's rows per thread (1, 2, 4, 8); then the main
+   path's workload once more without the injected slowdown, end to end,
+   and the host<->device copies one task pays outside its chunks;
 6. flash check: the flash-attention kernel against its plain version at the
    serving prefill shape (q [4, 32, 16, 128], k/v [4, 8, 128, 128] strided
    as the prefill passes them), q_offset 0 / 64 / 112, f32 (max abs
@@ -32,7 +41,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. decode check: the paged decode kernel against its plain version at
    q [8, 32, 1, 128], pools [65, 16, 8, 128], tables [8, 8], per-row
    positions including 0, and the contiguous entry on a ring that wrapped
-   (<= 2e-5); then paged against gather-plus-contiguous, bitwise;
+   (<= 2e-5); then paged against gather-plus-contiguous, bitwise; then the
+   same checks at groups 1 and 8 and hd 64 (``DECODE_EDGES``), with and
+   without a window;
 8. token serving, the attention LM's main path: ``repro_torch.Client(
    n_regions=2, serving={"lm": "attention", ...})`` on cuda:0 at Qwen3-8B's
    attention widths (d_model 4096, vocab 151936, 32 heads, 8 kv heads,
@@ -47,10 +58,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    decode launches per decode round.  The same traffic then runs twice
    more, warm and under ``torch.profiler`` (device time by kernel over the
    serving window), and must stream the same tokens;
-9. attention times at those shapes: device time (``torch.profiler``) and
-   CUDA-event time per launch for each kernel, its plain version and one
-   ``scaled_dot_product_attention`` call (explicit boolean mask, GQA) as
-   the yardstick, beside the bound from bytes and FLOPs;
+9. attention times at those shapes: device time (``torch.profiler``, else
+   queued behind a spin kernel) and CUDA-event time per launch for each
+   kernel, its plain version and one ``scaled_dot_product_attention`` call
+   (explicit boolean mask, GQA) as the yardstick, beside the bound from
+   bytes and FLOPs;
 10. recurrence check: the RG-LRU scan (B4) and RWKV-6 (B5) kernels against
     their plain versions at the reference's sweep shapes, the edges of the
     kernels' segments, tiles, chunks and column blocks (``SCAN_SHAPES``,
@@ -105,13 +117,19 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SIZE = 4096            # 16-megapixel single-channel frame, padded [4098, 4098]
-NARROW = 128           # second width for the kernel check: block [34, 130]
+# B1 checks, (row blocks, width): runs of 1, 7 and 8 blocks at the frame's
+# width, one block at 128, at a width that leaves a ragged column block, and
+# at an odd one (an odd row stride: 4-byte loads)
+BLUR_CHECKS = ((1, 4096), (7, 4096), (8, 4096), (1, 128), (1, 130), (1, 129))
+RUN_BLOCKS = 8         # the budget: the row blocks of a main-path launch
 BG_ITERS, URGENT_ITERS = 3, 1
 SLOWDOWN_S = 0.005     # stretches each chunk so the preemption surely lands
 GAUSS_TOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
-OPS_PER_PIXEL = {"median": 72, "gaussian": 17}  # 36 min/max exchanges; 9 mul + 8 add
+# the column-sort median: 4 sorted vertical triples (6 min/max each) shared
+# by a thread's 2 outputs, then 12 per output; gaussian 9 mul + 8 add
+OPS_PER_PIXEL = {"median": 24, "gaussian": 17}
 REPLACES = {"median": "src/repro/kernels/blur/kernel.py:44",
             "gaussian": "src/repro/kernels/blur/kernel.py:50"}
 TIMEOUT_S = 300
@@ -129,6 +147,8 @@ SERVE_CHUNK_BUDGET = 2     # 4 chunks per prefill task and per decode round
 PREEMPT_EVERY = 3          # every 3rd decode round, at its 2nd chunk
 F32_TOL, BF16_TOL = 2e-5, 2e-2
 FLASH_OFFSETS = (0, 64, 112)
+# B3's edges beyond the serving shape, (H, KV, hd): groups 1 and 8, hd 64
+DECODE_EDGES = ((32, 32, 128), (32, 4, 128), (32, 8, 64), (32, 4, 64))
 REPLACES_ATTN = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:24",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:22"}
@@ -254,9 +274,9 @@ def check(kind: str, got, want) -> float:
 def serve(imgs, slowdown_s: float):
     """The main path: ``repro_torch.Client(n_regions=2)`` on cuda:0, two
     priority-4 MedianBlur tasks, then — once both have retired a chunk — a
-    priority-0 GaussianBlur.  The launch counters are zeroed just before
-    and read just after.  Returns (background tasks, urgent task, report,
-    wall seconds, launches per body)."""
+    priority-0 GaussianBlur.  The launch and row-block counters are zeroed
+    just before and read just after.  Returns (background tasks, urgent
+    task, report, wall seconds, {body: (row blocks, launches)})."""
     import numpy as np
 
     import repro_torch
@@ -287,6 +307,7 @@ def serve(imgs, slowdown_s: float):
             r.slowdown_s = slowdown_s
             r.on_chunk = on_chunk
         K.LAUNCHES.reset()
+        K.ROW_BLOCKS.reset()
         t0 = time.perf_counter()
         handles = [client.submit(t) for t in tasks]
         if not both_started.wait(TIMEOUT_S):
@@ -295,11 +316,12 @@ def serve(imgs, slowdown_s: float):
         for h in handles:
             h.result(timeout=TIMEOUT_S)
         wall_s = time.perf_counter() - t0
-        launches = {k: K.LAUNCHES[k] for k in ("median", "gaussian")}
+        counts = {k: (K.ROW_BLOCKS[k], K.LAUNCHES[k])
+                  for k in ("median", "gaussian")}
         rep = client.drain(TIMEOUT_S)
     finally:
         client.shutdown()
-    return tasks, urgent, rep, wall_s, launches
+    return tasks, urgent, rep, wall_s, counts
 
 
 def log_serve(tag: str, tasks, urgent, rep, wall_s: float, slowdown_s: float):
@@ -519,6 +541,30 @@ def attention_phases(dev, card: str) -> list:
         raise AssertionError("paged decode is not bitwise equal to "
                              "gather-plus-contiguous")
     log("[decode] paged == gather-plus-contiguous, bitwise")
+    # the new design's edges: groups 1 / 4 / 8, hd 64 and 128, a window
+    for (h_, kv_, hd_), win in itertools.product(DECODE_EDGES, (None, 5)):
+        kp, vp = randn(NB, BS, kv_, hd_), randn(NB, BS, kv_, hd_)
+        qe = randn(B, h_, 1, hd_)
+        sc = 1.0 / hd_ ** 0.5
+        got = DK.launch_paged(qe, kp, vp, tables, pos, window=win, scale=sc)
+        kl, vl = DR.gather_kv_pages(kp, tables), DR.gather_kv_pages(vp, tables)
+        dense = DK.launch(qe, kl, vl, pos, window=win, scale=sc)
+        ring_got = DK.launch(qe, kl, vl, ring, window=win, scale=sc)
+        torch.cuda.synchronize()
+        err = max(float((got - DR.paged_decode_attention(
+            qe, kp, vp, tables, pos, window=win, scale=sc)).abs().max()),
+            float((ring_got - DR.decode_attention(
+                qe, kl, vl, ring, window=win, scale=sc)).abs().max()))
+        plan = DK.plan(B, h_, kv_, T_blk * BS, hd_, paged=True)
+        log(f"[decode] H {h_} KV {kv_} hd {hd_} window {win} ({plan}): "
+            f"max_abs_err {err:.3e} (paged and ring); paged == "
+            f"gather-plus-contiguous: {torch.equal(got, dense)}; pos-0 row "
+            f"zero: {bool((got[0] == 0).all())}")
+        if not (err <= F32_TOL and torch.equal(got, dense)
+                and bool((got[0] == 0).all())):
+            raise AssertionError(f"decode H {h_} KV {kv_} hd {hd_} window "
+                                 f"{win}: max_abs_err {err}")
+        decode_err = max(decode_err, err)
 
     # 8. token serving at full width
     traffic = serving_traffic()
@@ -648,20 +694,22 @@ def attention_phases(dev, card: str) -> list:
 
 def time_kernel(name, n_launch, kernel, plain, library, bounds, launches,
                 err, lib_note) -> dict:
-    """Device time (``torch.profiler``) and CUDA-event time per launch of
-    ``kernel`` (``n_launch`` launches per call), its plain version and the
-    library yardstick; the bound is the mean over the launches of the
-    larger of the bytes and the FLOPs times."""
-    dev_ms = {"kernel": device_ms(kernel), "plain": device_ms(plain),
-              "library": device_ms(library)}
+    """Device time (``torch.profiler``, else queued behind a spin kernel)
+    and CUDA-event time per launch of ``kernel`` (``n_launch`` launches per
+    call), its plain version and the library yardstick; the bound is the
+    mean over the launches of the larger of the bytes and the FLOPs
+    times."""
+    fns = {"kernel": kernel, "plain": plain, "library": library}
+    dev_ms = {"kernel": device_ms(kernel, launches=n_launch),
+              "plain": device_ms(plain), "library": device_ms(library)}
     wall_ms = {"kernel": cuda_time_ms(kernel, reps=50),
                "plain": cuda_time_ms(plain, reps=10),
                "library": cuda_time_ms(library, reps=50)}
     for arm in dev_ms:
         if dev_ms[arm] <= 0.0:
-            log(f"[time] {name} {arm}: profiler saw no device time; using "
-                f"the CUDA-event time")
-            dev_ms[arm] = wall_ms[arm]
+            log(f"[time] {name} {arm}: the profiler missed the launches; "
+                f"using the time queued behind a spin kernel")
+            dev_ms[arm] = queued_ms(fns[arm])
         log(f"[time] {name} {arm}: device {dev_ms[arm] / n_launch:.6f} ms "
             f"per launch; wall (CUDA events, back-to-back) "
             f"{wall_ms[arm] / n_launch:.6f} ms per launch")
@@ -1048,18 +1096,19 @@ def main() -> int:
                 log(f"[build] {lib}: {line.strip()}")
 
     # 3. kernel vs plain version --------------------------------------------
-    errs = {}
-    for w in (SIZE, NARROW):
-        block = torch.tensor(rng.random((ROW_BLOCK + 2, w + 2),
+    errs = {"median": 0.0, "gaussian": 0.0}
+    for n_blocks, w in BLUR_CHECKS:
+        block = torch.tensor(rng.random((n_blocks * ROW_BLOCK + 2, w + 2),
                                         dtype=np.float32), device=dev)
         for kind in ("median", "gaussian"):
             got = K.blur_block(block, kind)
             torch.cuda.synchronize()
             err = check(kind, got, R.blur_block(block, kind))
-            if w == SIZE:
-                errs[kind] = err
-            log(f"[check] {kind} [{ROW_BLOCK + 2}, {w + 2}] max_abs_err "
-                f"{err:.3e}")
+            errs[kind] = max(errs[kind], err)
+            per_thread = K.rows_per_thread(n_blocks * ROW_BLOCK, w)
+            log(f"[check] {kind} [{n_blocks * ROW_BLOCK + 2}, {w + 2}] "
+                f"({n_blocks} row block(s), {per_thread} rows a thread) "
+                f"max_abs_err {err:.3e}")
     img = make_image(rng, SIZE)
     kd = get_kernel("MedianBlur")
     bufs, ints, floats = kd.bundle(img, np.zeros_like(img), H=SIZE, W=SIZE,
@@ -1078,16 +1127,26 @@ def main() -> int:
 
     # 4. main path ----------------------------------------------------------
     imgs = [make_image(rng, SIZE) for _ in range(3)]
-    tasks, urgent, rep, main_s, launches = serve(imgs, SLOWDOWN_S)
+    tasks, urgent, rep, main_s, counts = serve(imgs, SLOWDOWN_S)
     n_rb = SIZE // ROW_BLOCK
-    want_launches = {"median": 2 * BG_ITERS * n_rb,
-                     "gaussian": URGENT_ITERS * n_rb}
+    budget = get_kernel("MedianBlur").default_budget
+    want_blocks = {"median": 2 * BG_ITERS * n_rb,
+                   "gaussian": URGENT_ITERS * n_rb}
+    blocks = {k: c[0] for k, c in counts.items()}
+    launches = {k: c[1] for k, c in counts.items()}
     log_serve("main", tasks, urgent, rep, main_s, SLOWDOWN_S)
-    log(f"[main] launches {launches} (expected {want_launches})")
+    log(f"[main] row blocks {blocks} (expected exactly {want_blocks}); "
+        f"launches {launches} (expected at least ceil(row blocks / "
+        f"{budget}) a kind, at most 2 x {rep['chunks']} chunks retired)")
     if rep["preemptions"] < 1:
         raise AssertionError("the urgent task preempted nothing")
-    if launches != want_launches:
-        raise AssertionError(f"launch count {launches} != {want_launches}")
+    if blocks != want_blocks:
+        raise AssertionError(f"row-block count {blocks} != {want_blocks}")
+    if (any(launches[k] < -(-blocks[k] // budget) for k in launches)
+            or sum(launches.values()) > 2 * rep["chunks"]):
+        raise AssertionError(f"launch count {launches} outside "
+                             f"[ceil({blocks} / {budget}), 2 x "
+                             f"{rep['chunks']} chunks]")
     for t, im, iters, kind in ((tasks[0], imgs[0], BG_ITERS, "median"),
                                (tasks[1], imgs[1], BG_ITERS, "median"),
                                (urgent, imgs[2], URGENT_ITERS, "gaussian")):
@@ -1102,69 +1161,102 @@ def main() -> int:
     # 5. times ---------------------------------------------------------------
     src = torch.tensor(imgs[0], device=dev)
     dst = torch.zeros_like(src)
-    block = src[:ROW_BLOCK + 2]
-    out = torch.empty((ROW_BLOCK, SIZE), device=dev)
-    nbytes = ((ROW_BLOCK + 2) * (SIZE + 2) + ROW_BLOCK * SIZE) * 4
+    run_rows = RUN_BLOCKS * ROW_BLOCK
+    weight = torch.tensor([[1., 2., 1.], [2., 4., 2.], [1., 2., 1.]],
+                          device=dev).div(16.0).view(1, 1, 3, 3)
     records = []
     for kind in ("median", "gaussian"):
-        def kernel_image():
-            for r in range(n_rb):
-                K.blur_rows(src, dst, r * ROW_BLOCK, ROW_BLOCK, kind)
+        def launch_rows(n_blocks, kind=kind):
+            return lambda: K.blur_rows(src, dst, 0, ROW_BLOCK, kind, n_blocks)
 
-        def plain_image():
-            for r in range(n_rb):
-                row0 = r * ROW_BLOCK
-                dst[row0 + 1:row0 + ROW_BLOCK + 1, 1:SIZE + 1] = \
-                    R.blur_block(src[row0:row0 + ROW_BLOCK + 2], kind)
+        def kernel_image(kind=kind):
+            for r in range(0, n_rb, RUN_BLOCKS):
+                K.blur_rows(src, dst, r * ROW_BLOCK, ROW_BLOCK, kind,
+                            RUN_BLOCKS)
 
-        hot_ms = cuda_time_ms(lambda: K.launch(block, out, kind), reps=200)
-        wall_ms = {"kernel": cuda_time_ms(kernel_image, reps=5),
-                "plain": cuda_time_ms(plain_image, reps=3)}
-        dev_ms = {"kernel": device_ms(kernel_image),
-               "plain": device_ms(plain_image)}
-        ops = OPS_PER_PIXEL[kind] * ROW_BLOCK * SIZE
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / F32_OPS_PER_S * 1e3
+        def plain_run(kind=kind):
+            dst[1:run_rows + 1, 1:SIZE + 1] = R.blur_block(
+                src[:run_rows + 2], kind)
+
+        arms = {"kernel, run": (launch_rows(RUN_BLOCKS), 1),
+                "kernel, block": (launch_rows(1), 1),
+                "kernel, image": (kernel_image, n_rb // RUN_BLOCKS),
+                "plain, run": (plain_run, None)}
         if kind == "gaussian":
-            weight = torch.tensor([[1., 2., 1.], [2., 4., 2.], [1., 2., 1.]],
-                                  device=dev).div(16.0).view(1, 1, 3, 3)
-
-            def conv_image():
-                for r in range(n_rb):
-                    row0 = r * ROW_BLOCK
-                    dst[row0 + 1:row0 + ROW_BLOCK + 1, 1:SIZE + 1] = F.conv2d(
-                        src[None, None, row0:row0 + ROW_BLOCK + 2], weight)[0, 0]
-
-            conv_err = float((F.conv2d(block[None, None], weight)[0, 0]
-                              - K.blur_block(block, kind)).abs().max())
-            wall_ms["library"] = cuda_time_ms(conv_image, reps=3)
-            dev_ms["library"] = device_ms(conv_image)
-            log(f"[time] gaussian conv2d (max diff vs kernel {conv_err:.3e})")
-        for arm in list(dev_ms):
+            arms["conv2d, run"] = (
+                lambda: F.conv2d(src[None, None, :run_rows + 2], weight), None)
+            conv_err = float((F.conv2d(src[None, None, :run_rows + 2],
+                                       weight)[0, 0]
+                              - K.blur_block(src[:run_rows + 2], kind))
+                             .abs().max())
+            log(f"[time] gaussian conv2d (TF32 off) max diff vs kernel "
+                f"{conv_err:.3e}")
+        dev_ms = {}
+        for arm, (fn, n_launch) in arms.items():
+            dev_ms[arm] = device_ms(fn, launches=n_launch)
+            how = "device (torch.profiler)"
             if dev_ms[arm] <= 0.0:
-                log(f"[time] {kind} {arm}: profiler saw no device time; "
-                    f"using the CUDA-event time")
-                dev_ms[arm] = wall_ms[arm]
-        for arm in dev_ms:
-            log(f"[time] {kind} {arm}: device {dev_ms[arm] / n_rb:.6f} ms per "
-                f"row block, {dev_ms[arm]:.6f} ms per image; wall (CUDA events,"
-                f" back-to-back) {wall_ms[arm] / n_rb:.6f} ms per row block, "
-                f"{wall_ms[arm]:.6f} ms per image")
+                dev_ms[arm] = queued_ms(fn)
+                how = "queued behind a spin kernel (the profiler missed it)"
+            wall = cuda_time_ms(fn, reps=20)
+            log(f"[time] {kind} {arm}: {dev_ms[arm]:.6f} ms {how}; wall "
+                f"(CUDA events, back-to-back) {wall:.6f} ms")
+        # every rows-per-thread instantiation at the run shape, through the
+        # C entry (the wrapper always takes the plan's)
+        run_src, run_dst = src[:run_rows + 2], dst[1:run_rows + 1, 1:SIZE + 1]
+        vec = int(run_src.data_ptr() % 8 == 0 and run_src.stride(0) % 2 == 0)
+        for per_thread in K.ROWS_PER_THREAD:
+            def fn(per_thread=per_thread, kind=kind):
+                err = K._lib()(run_src.data_ptr(), run_src.stride(0),
+                               run_dst.data_ptr(), run_dst.stride(0),
+                               run_rows, SIZE, K.KINDS[kind], per_thread, vec,
+                               torch.cuda.current_stream(dev).cuda_stream)
+                if err != 0:
+                    raise RuntimeError(f"blur_rows ({per_thread} rows a "
+                                       f"thread) failed: CUDA error {err}")
+
+            ms, how = device_ms(fn, launches=1), "device"
+            if ms <= 0.0:
+                ms, how = queued_ms(fn), "queued behind a spin kernel"
+            plan = K.rows_per_thread(run_rows, SIZE)
+            log(f"[time] {kind} run, {per_thread} rows a thread"
+                f"{' (the plan)' if per_thread == plan else ''}: {ms:.6f} ms "
+                f"per launch ({how})")
+        per_block = {"run": dev_ms["kernel, run"] / RUN_BLOCKS,
+                     "block": dev_ms["kernel, block"],
+                     "image": dev_ms["kernel, image"] / n_rb}
+        bounds = {}
+        for what, rows in (("run", run_rows), ("block", ROW_BLOCK)):
+            nbytes = ((rows + 2) * (SIZE + 2) + rows * SIZE) * 4
+            bounds[what] = (nbytes / HBM_BYTES_PER_S * 1e3,
+                            OPS_PER_PIXEL[kind] * rows * SIZE
+                            / F32_OPS_PER_S * 1e3)
+        log(f"[time] {kind}: per row block {per_block['run']:.6f} ms in a "
+            f"{RUN_BLOCKS}-block run, {per_block['block']:.6f} ms alone, "
+            f"{per_block['image']:.6f} ms over a whole image of "
+            f"{n_rb // RUN_BLOCKS} runs ({dev_ms['kernel, image']:.6f} ms); "
+            f"bound per launch {max(bounds['run']):.6f} ms at "
+            f"[{run_rows + 2}, {SIZE + 2}], {max(bounds['block']):.6f} ms at "
+            f"[{ROW_BLOCK + 2}, {SIZE + 2}] (bytes {bounds['run'][0]:.6f} / "
+            f"{bounds['block'][0]:.6f}, operations {bounds['run'][1]:.6f} / "
+            f"{bounds['block'][1]:.6f})")
         rec = {"name": f"blur_{kind}", "route": "cuda",
                "source": "src/repro_torch/csrc/blur.cu",
                "replaces": REPLACES[kind],
                "launches": launches[kind],
                "max_abs_err": errs[kind],
-               "ms": dev_ms["kernel"] / n_rb,
-               "plain_ms": dev_ms["plain"] / n_rb,
-               "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               "library_ms": (dev_ms["library"] / n_rb
-                              if "library" in dev_ms else None)}
+               "ms": dev_ms["kernel, run"],
+               "row_blocks_per_launch": RUN_BLOCKS,
+               "ms_per_row_block": per_block["run"],
+               "plain_ms": dev_ms["plain, run"],
+               "bound_ms": max(bounds["run"]),
+               "bound_by": ("bytes" if bounds["run"][0] >= bounds["run"][1]
+                            else "operations"),
+               "library_ms": dev_ms.get("conv2d, run")}
         records.append(rec)
-        log(f"[time] {kind}: kernel {rec['ms']:.6f} ms device per launch "
-            f"(L2-hot wall {hot_ms:.6f} ms); bound {rec['bound_ms']:.6f} ms "
-            f"({rec['bound_by']})")
+        log(f"[time] {kind}: kernel {rec['ms']:.6f} ms device per launch of "
+            f"the main path ([{run_rows + 2}, {SIZE + 2}]); bound "
+            f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
 
     e2e = serve(imgs, 0.0)
     log_serve("e2e, no slowdown", *e2e[:4], 0.0)
@@ -1183,7 +1275,8 @@ def main() -> int:
     log(f"[copies] one task's two images ({mb:.1f} MB, pageable host "
         f"memory): upload {up_ms:.3f} ms ({mb / up_ms:.3f} GB/s), result "
         f"copy {down_ms:.3f} ms ({mb / down_ms:.3f} GB/s); kernel device "
-        f"time per 3-iteration task {records[0]['ms'] * 3 * n_rb:.3f} ms")
+        f"time per 3-iteration task "
+        f"{records[0]['ms'] * 3 * n_rb / RUN_BLOCKS:.3f} ms")
 
     records += attention_phases(dev, card)
     records += recurrent_phases(dev, card)

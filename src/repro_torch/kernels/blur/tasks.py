@@ -11,8 +11,15 @@ extra copies.  Context slots: 0 = iteration k, 1 = row block index.  The
 checkpoint convention stores the NEXT index (exactly-once row blocks).
 
 The row-block loop is the preemption granularity: one ``budget`` unit = one
-row block = one kernel launch.  The parity of ``k`` is read from the host
-context, so each row block is ONE launch that writes its 32 rows in place
+row block, exactly as in the reference.  The launches are coarser: the
+row blocks of one pass that a chunk covers are consecutive and independent
+(they read one image and write the other), so ``body_row`` only records
+its block and the run goes to the card as ONE launch when the pass's row
+loop returns -- complete, or cut by the budget, which is also where the
+chunk ends.  A run never spans two passes (the next pass reads what this
+one wrote).  A chunk spends budget on the iteration loop too, so it
+touches at most two passes: at most two launches a chunk.  The parity of
+``k`` is read from the host context and each run writes its rows in place
 into the destination image (the reference instead rebuilds both whole
 images with ``jnp.where`` on every row block).
 """
@@ -29,15 +36,37 @@ ROW_BLOCK = 32
 SLOT_K, SLOT_ROW = 0, 1
 
 
+class _Run:
+    """The pending run of consecutive row blocks of one pass."""
+
+    def __init__(self, kind: str):
+        self.kind, self.src, self.dst, self.first, self.count = (
+            kind, None, None, 0, 0)
+
+    def add(self, src, dst, r: int):
+        if self.count and src is self.src and r == self.first + self.count:
+            self.count += 1
+            return
+        self.flush()
+        self.src, self.dst, self.first, self.count = src, dst, r, 1
+
+    def flush(self):
+        if self.count:
+            blur_rows(self.src, self.dst, ROW_BLOCK, self.first, self.kind,
+                      self.count)
+            self.count = 0
+
+
 def _blur_task(ctx: ContextRecord, bufs, ints, floats, kind: str):
     ping, pong = bufs[0], bufs[1]
     n_rb = (ping.shape[0] - 2) // ROW_BLOCK
     iters = int(ints[2])
+    run = _Run(kind)
 
     def body_row(ctx, r, state):
         even = int(ctx.var[SLOT_K]) % 2 == 0
         src, dst = (ping, pong) if even else (pong, ping)
-        blur_rows(src, dst, ROW_BLOCK, r, kind)
+        run.add(src, dst, r)
         ctx = ctx.checkpoint(SLOT_ROW, r + 1)  # paper: checkpoint(row);
         return ctx, state
 
@@ -45,6 +74,7 @@ def _blur_task(ctx: ContextRecord, bufs, ints, floats, kind: str):
         # row loop nested under the iteration loop (Listing 1.1 structure)
         ctx = ctx.checkpoint(SLOT_K, k)  # current iteration (re-entrant)
         ctx, state = for_save(ctx, SLOT_ROW, 0, n_rb, 1, body_row, state)
+        run.flush()  # complete or cut by the budget: launch the pass's run
         # advance k iff the row loop fully completed (paper: checkpoint(k);)
         if ctx.intr == 0:
             ctx = ctx.checkpoint(SLOT_K, k + 1)

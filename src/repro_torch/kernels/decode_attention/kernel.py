@@ -4,23 +4,58 @@
 Replaces the reference's Pallas ``decode_attention_pallas``
 (``repro/kernels/decode_attention/kernel.py``) and, in the paged entry, the
 XLA page gather before it.  The CUDA source carries the design note.  This
-module checks device, dtype, shapes and strides, launches on the current
-stream, raises if the launch was refused, and counts launches in
-``LAUNCHES`` (keys ``"contiguous"`` and ``"paged"``).
+module plans the launch (``plan``), checks device, dtype, shapes and
+strides, launches on the current stream, raises if the launch was refused,
+and counts launches in ``LAUNCHES`` (keys ``"contiguous"`` and ``"paged"``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels.native import LaunchCounter, load_library
 
-MAX_KEYS_AND_HEAD_DIM = 12 * 1024  # scores + q row in 48 KB of shared memory
+MAX_KEYS_AND_HEAD_DIM = 12 * 1024  # keys + head dim the wrapper accepts
 LAUNCHES = LaunchCounter()
+MAX_WARPS = 8
+TILE = 128                 # output dims a block covers
+SMEM_BYTES = 232448        # shared memory a block can have on an H100
 
 _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+
+
+class Plan(NamedTuple):
+    heads_per_block: int   # query heads of a group that share a block's loads
+    warps: int             # warps a block, each a contiguous slice of keys
+
+
+def _keys_per_step(heads_per_block: int) -> int:
+    return 4 if heads_per_block >= 8 else 8
+
+
+def smem_bytes(heads_per_block: int, warps: int, hd: int, slots: int) -> int:
+    """Dynamic shared memory of a block, as ``csrc/decode_attention.cu``
+    lays it out: queries, per-warp softmax states, score tiles, and
+    (paged: ``slots`` = S) each slot's pool row."""
+    g = heads_per_block
+    return 4 * (-(-g * hd // 4) * 4 + warps * g * (TILE + 4)
+                + warps * _keys_per_step(g) * g + slots)
+
+
+def plan(B: int, H: int, KV: int, S: int, hd: int, paged: bool = False
+         ) -> Plan:
+    """Heads per block: the most of 8, 4, 2, 1 that divides the group and
+    fits the shared memory.  Warps: enough for one step of keys each, at
+    most 8."""
+    group = H // KV
+    g = next(g for g in (8, 4, 2, 1)
+             if group % g == 0
+             and smem_bytes(g, MAX_WARPS, hd, S if paged else 0) <= SMEM_BYTES)
+    kc = _keys_per_step(g)
+    warps = max(1, min(MAX_WARPS, -(-S // kc)))
+    return Plan(g, warps)
 
 
 def _lib():
@@ -28,12 +63,18 @@ def _lib():
     dense, paged = lib.decode_attention_fwd, lib.paged_decode_attention_fwd
     if dense.argtypes is None:
         dense.argtypes = ([_P, _LL, _LL] + [_P, _LL, _LL, _LL] * 2
-                          + [_P, _P] + [_I] * 6 + [_F, _P])
+                          + [_P, _P] + [_I] * 6 + [_F] + [_I] * 3 + [_P])
         dense.restype = ctypes.c_int
         paged.argtypes = ([_P, _LL, _LL, _P, _P, _P, _LL, _I, _I, _I, _P, _P]
-                          + [_I] * 5 + [_F, _P])
+                          + [_I] * 5 + [_F] + [_I] * 3 + [_P])
         paged.restype = ctypes.c_int
     return dense, paged
+
+
+def _vec(hd: int, tensors, strides) -> int:
+    """1 when every row a lane reads as a float4 starts 16-byte aligned."""
+    return int(hd % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+               and all(st % 4 == 0 for st in strides))
 
 
 def _check(t: torch.Tensor, what: str, dtype: torch.dtype, device, dim: int):
@@ -98,12 +139,15 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     _check_sizes(H, KV, S, hd)
     p = _positions(pos, B, q.device)
     o = torch.empty((B, H, 1, hd), dtype=torch.float32, device=q.device)
+    pl = plan(B, H, KV, S, hd)
+    vec = _vec(hd, (k_cache, v_cache),
+               k_cache.stride()[:3] + v_cache.stride()[:3])
     dense, _ = _lib()
     err = dense(q.data_ptr(), q.stride(0), q.stride(1),
                 k_cache.data_ptr(), *k_cache.stride()[:3],
                 v_cache.data_ptr(), *v_cache.stride()[:3],
                 p.data_ptr(), o.data_ptr(), B, H, KV, S, hd, win, float(scale),
-                torch.cuda.current_stream(q.device).cuda_stream)
+                *pl, vec, torch.cuda.current_stream(q.device).cuda_stream)
     _finish(err, "contiguous")
     return o
 
@@ -126,6 +170,9 @@ def launch_paged(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         raise ValueError(f"pools {tuple(k_pool.shape)} / "
                          f"{tuple(v_pool.shape)} do not match q "
                          f"{tuple(q.shape)} as [NB,BS,KV,hd]")
+    if NB * BS * KV >= 2 ** 31:
+        raise ValueError(f"pools of {NB * BS * KV} rows exceed the kernel's "
+                         f"int32 row index")
     _check(tables, "tables", torch.int32, q.device, 2)
     if tables.shape[0] != B:
         raise ValueError(f"tables has {tables.shape[0]} rows, q has {B}")
@@ -133,10 +180,13 @@ def launch_paged(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     _check_sizes(H, KV, T_blk * BS, hd)
     p = _positions(pos, B, q.device)
     o = torch.empty((B, H, 1, hd), dtype=torch.float32, device=q.device)
+    pl = plan(B, H, KV, T_blk * BS, hd, paged=True)
+    vec = _vec(hd, (k_pool, v_pool), ())
     _, paged = _lib()
     err = paged(q.data_ptr(), q.stride(0), q.stride(1), k_pool.data_ptr(),
                 v_pool.data_ptr(), tables.data_ptr(), tables.stride(0), T_blk,
                 NB, BS, p.data_ptr(), o.data_ptr(), B, H, KV, hd, win,
-                float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+                float(scale), *pl, vec,
+                torch.cuda.current_stream(q.device).cuda_stream)
     _finish(err, "paged")
     return o

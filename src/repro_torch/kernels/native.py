@@ -144,9 +144,9 @@ class LaunchCounter:
         self._lock = threading.Lock()
         self._counts: Counter = Counter()
 
-    def inc(self, key: str):
+    def inc(self, key: str, n: int = 1):
         with self._lock:
-            self._counts[key] += 1
+            self._counts[key] += n
 
     def __getitem__(self, key: str) -> int:
         with self._lock:

@@ -156,3 +156,157 @@ def test_plain_decode_pos_zero_row_is_exactly_zero():
         q, torch.tensor(k_pool), torch.tensor(v_pool), torch.tensor(tables),
         torch.tensor([0, 0, 5], dtype=torch.int32))
     assert bool((out[:2] == 0).all()) and bool((out[2] != 0).any())
+
+
+# -- B3's order, rehearsed in plain torch -------------------------------------
+# ``csrc/decode_attention.cu`` sums in another order than the plain version:
+# the valid keys, in ascending position, are cut into one contiguous slice
+# per warp; each warp runs an online softmax over steps of KC keys (max
+# started at the reference's -0.5e30 clamp, one rescale per step); the
+# warps' states are combined in warp order, and the denominator is floored
+# at 1e-30.  This
+# model repeats that order (without the fused multiply-adds), so a run
+# without a card checks that the order alone stays within 2e-5 of the
+# reference.
+
+from repro_torch.kernels.decode_attention import kernel as DK  # noqa: E402
+
+MAX_FLOOR, DENOM_FLOOR = -0.5e30, 1e-30
+
+
+def _combine(states):
+    m = torch.stack([s[0] for s in states]).amax(dim=0).clamp_min(MAX_FLOOR)
+    lsum = torch.zeros_like(m)
+    osum = torch.zeros_like(states[0][2])
+    for sm, sl, so in states:
+        f = torch.exp(sm - m)
+        lsum = f * sl + lsum
+        osum = f[:, None] * so + osum
+    return m, lsum, osum
+
+
+def _kernel_order_decode(q, rows, pos, S, window, scale, plan):
+    """q [B,H,1,hd]; ``rows(b, kvh, slots) -> (k [n,hd], v [n,hd])`` with
+    ``rows.kv`` KV heads; pos a list; ``plan`` a ``kernel.Plan`` ->
+    [B,H,1,hd] in the kernel's order."""
+    B, H, _, hd = q.shape
+    out = torch.zeros_like(q)
+    kc = 4 if plan.heads_per_block >= 8 else 8
+    ranks = plan.warps
+    for b in range(B):
+        last = int(pos[b]) - 1
+        n = 0 if last < 0 else min(last + 1, S)
+        if window is not None:
+            n = min(n, window)
+        slots = (last - n + 1 + torch.arange(n)) % S
+        for h0 in range(0, H, plan.heads_per_block):
+            kvh = h0 // (H // rows.kv)
+            qs = q[b, h0:h0 + plan.heads_per_block, 0] * scale
+            k, v = rows(b, kvh, slots)
+            states = []
+            for wr in range(ranks):
+                m = torch.full((qs.shape[0],), MAX_FLOOR)
+                lsum = torch.zeros(qs.shape[0])
+                acc = torch.zeros(qs.shape[0], hd)
+                for t0 in range(n * wr // ranks, n * (wr + 1) // ranks, kc):
+                    t1 = min(t0 + kc, n * (wr + 1) // ranks)
+                    s = qs @ k[t0:t1].T
+                    mx = torch.maximum(m, s.amax(dim=1))
+                    p = torch.exp(s - mx[:, None])
+                    alpha = torch.exp(m - mx)
+                    psum = torch.zeros_like(m)
+                    acc = acc * alpha[:, None]
+                    for c in range(t1 - t0):
+                        psum = psum + p[:, c]
+                        acc = p[:, c:c + 1] * v[t0 + c] + acc
+                    lsum, m = lsum * alpha + psum, mx
+                states.append((m, lsum, acc))
+            _, lsum, acc = _combine(states)
+            out[b, h0:h0 + plan.heads_per_block, 0] = (
+                acc / lsum.clamp_min(DENOM_FLOOR)[:, None])
+    return out
+
+
+class _DenseRows:
+    def __init__(self, k, v):
+        self.k, self.v, self.kv = k, v, k.shape[1]
+
+    def __call__(self, b, kvh, slots):
+        return self.k[b, kvh, slots], self.v[b, kvh, slots]
+
+
+class _PagedRows:
+    def __init__(self, k_pool, v_pool, tables):
+        self.k, self.v, self.tables = k_pool, v_pool, tables.long()
+        self.kv, self.bs = k_pool.shape[2], k_pool.shape[1]
+
+    def __call__(self, b, kvh, slots):
+        page, off = self.tables[b, slots // self.bs], slots % self.bs
+        return self.k[page, off, kvh], self.v[page, off, kvh]
+
+
+SERVING = dict(B=8, H=32, KV=8, hd=128, BS=16, T_blk=8)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("H,KV", [(32, 8), (32, 32), (32, 4)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_kernel_order_decode_matches_reference(window, H, KV, hd):
+    """The serving shape (and groups 1 and 8, and hd 64), dead rows
+    (pos = 0), a window; paged bitwise equal to gather-plus-contiguous; a
+    ring that wrapped."""
+    B, BS, T_blk = (SERVING[k] for k in ("B", "BS", "T_blk"))
+    S = BS * T_blk
+    rng = np.random.default_rng(H + KV + hd + (window or 0))
+    NB = 1 + B * T_blk
+    k_pool = _normal(rng, (NB, BS, KV, hd))
+    v_pool = _normal(rng, (NB, BS, KV, hd))
+    tables = rng.permutation(np.arange(1, NB)).reshape(B, T_blk).astype(
+        np.int32)
+    q = _normal(rng, (B, H, 1, hd))
+    pos = [0, 1, 17, 40, 64, 100, 127, 128]
+    plan = DK.plan(B, H, KV, S, hd, paged=True)
+    scale = 1.0 / hd ** 0.5
+    tq, tk, tv, tt = (torch.tensor(a) for a in (q, k_pool, v_pool, tables))
+    paged = _kernel_order_decode(tq, _PagedRows(tk, tv, tt), pos, S, window,
+                                 scale, plan)
+    want = ref_paged(jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
+                     jnp.asarray(tables), jnp.asarray(pos, jnp.int32),
+                     window=window)
+    np.testing.assert_allclose(paged.numpy(), np.asarray(want), rtol=0,
+                               atol=F32_TOL)
+    assert bool((paged[0] == 0).all())
+    dense_k, dense_v = (dref.gather_kv_pages(t, tt) for t in (tk, tv))
+    dense = _kernel_order_decode(tq, _DenseRows(dense_k, dense_v), pos, S,
+                                 window, scale, plan)
+    assert torch.equal(paged, dense)
+    ring = [0, 5, 128, 129, 200, 255, 256, 1000]
+    got = _kernel_order_decode(tq, _DenseRows(dense_k, dense_v), ring, S,
+                               window, scale, plan)
+    want = ref_decode(jnp.asarray(q), jnp.asarray(dense_k.numpy()),
+                      jnp.asarray(dense_v.numpy()),
+                      jnp.asarray(ring, jnp.int32), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=F32_TOL)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((8, 32, 8, 128, 128), DK.Plan(4, 8)),    # the serving shape
+    ((8, 32, 32, 128, 128), DK.Plan(1, 8)),   # group 1
+    ((8, 32, 4, 128, 64), DK.Plan(8, 8)),     # group 8, hd 64
+    ((8, 32, 8, 1024, 128), DK.Plan(4, 8)),   # long context
+    ((2, 4, 2, 12, 16), DK.Plan(2, 2)),       # few keys: few warps
+])
+def test_decode_plan(shape, want):
+    assert DK.plan(*shape, paged=True) == want
+    assert DK.smem_bytes(want.heads_per_block, want.warps, shape[4],
+                         shape[3]) <= DK.SMEM_BYTES
+
+
+def test_decode_plan_fits_large_head_dims():
+    """The wrapper accepts S + hd up to 12 K: the plan gives fewer heads a
+    block until the queries fit the shared memory."""
+    p = DK.plan(1, 64, 1, 4096, 12 * 1024 - 4096)
+    assert p.heads_per_block == 4
+    assert DK.smem_bytes(p.heads_per_block, p.warps, 12 * 1024 - 4096,
+                         0) <= DK.SMEM_BYTES

@@ -66,10 +66,15 @@ def _check(kind, got, want):
 
 
 @pytest.mark.parametrize("kind", ["median", "gaussian"])
-@pytest.mark.parametrize("w", [128, 130, 4096])
-def test_cuda_kernel_matches_plain_version(cuda_device, kind, w):
-    block = torch.tensor(np.random.default_rng(w).random(
-        (ROW_BLOCK + 2, w + 2), dtype=np.float32), device=cuda_device)
+@pytest.mark.parametrize("w", [128, 129, 130, 4096])
+@pytest.mark.parametrize("n_blocks", [1, 2, 7, 8])
+def test_cuda_kernel_matches_plain_version(cuda_device, kind, w, n_blocks):
+    """1, 2, 7 and 8 row blocks in one launch (at width 4096 the plan's
+    1, 2, 4 and 8 rows a thread), at widths 128, 130 and 4096 (8-byte loads) and 129 (an odd row
+    stride: 4-byte loads)."""
+    block = torch.tensor(np.random.default_rng(w + n_blocks).random(
+        (n_blocks * ROW_BLOCK + 2, w + 2), dtype=np.float32),
+        device=cuda_device)
     before = K.LAUNCHES[kind]
     got = ops.blur_block(block, kind)
     torch.cuda.synchronize()
@@ -77,16 +82,36 @@ def test_cuda_kernel_matches_plain_version(cuda_device, kind, w):
     _check(kind, got, ref.blur_block(block, kind))
 
 
-def test_cuda_in_place_rows_touch_nothing_else(cuda_device):
+@pytest.mark.parametrize("kind", ["median", "gaussian"])
+@pytest.mark.parametrize("rows,per_thread", [(5, 1), (67, 2), (227, 4),
+                                              (253, 8)])
+def test_cuda_kernel_every_rows_per_thread(cuda_device, kind, rows,
+                                           per_thread):
+    """Each instantiation, reached through the plan at width 4096 by its
+    row count, with a ragged last row group."""
+    assert K.rows_per_thread(rows, 4096) == per_thread
+    block = torch.tensor(np.random.default_rng(rows).random(
+        (rows + 2, 4096 + 2), dtype=np.float32), device=cuda_device)
+    got = ops.blur_block(block, kind)
+    torch.cuda.synchronize()
+    _check(kind, got, ref.blur_block(block, kind))
+
+
+@pytest.mark.parametrize("n_blocks", [1, 3])
+def test_cuda_in_place_rows_touch_nothing_else(cuda_device, n_blocks):
+    """A run of ``n_blocks`` row blocks in place writes exactly its rows."""
     img = torch.tensor(make_image(np.random.default_rng(2), 200),
                        device=cuda_device)
     dst = torch.full_like(img, -1.0)
-    ops.blur_rows(img, dst, ROW_BLOCK, 3, "median")
-    row0 = 3 * ROW_BLOCK
-    _check("median", dst[row0 + 1:row0 + ROW_BLOCK + 1, 1:-1],
-           ref.blur_block(img[row0:row0 + ROW_BLOCK + 2], "median"))
+    before = (K.LAUNCHES["median"], K.ROW_BLOCKS["median"])
+    ops.blur_rows(img, dst, ROW_BLOCK, 3, "median", n_blocks)
+    assert (K.LAUNCHES["median"], K.ROW_BLOCKS["median"]) == (
+        before[0] + 1, before[1] + n_blocks)
+    row0, rows = 3 * ROW_BLOCK, n_blocks * ROW_BLOCK
+    _check("median", dst[row0 + 1:row0 + rows + 1, 1:-1],
+           ref.blur_block(img[row0:row0 + rows + 2], "median"))
     mask = torch.ones_like(dst, dtype=torch.bool)
-    mask[row0 + 1:row0 + ROW_BLOCK + 1, 1:-1] = False
+    mask[row0 + 1:row0 + rows + 1, 1:-1] = False
     assert bool((dst[mask] == -1.0).all())
 
 
@@ -111,12 +136,21 @@ def _run(img, n_regions=1, hook=None):
         kd = get_kernel("MedianBlur")
         task = Task(kernel="MedianBlur", args=kd.bundle(
             img.copy(), np.zeros_like(img), H=200, W=200, iters=3))
-        before = K.LAUNCHES.total()
+        before = (K.ROW_BLOCKS.total(), K.LAUNCHES.total())
         client.submit(task).result(timeout=TIMEOUT)
-        launches = K.LAUNCHES.total() - before
-        return task, client.report(), launches
+        counts = (K.ROW_BLOCKS.total() - before[0],
+                  K.LAUNCHES.total() - before[1])
+        return task, client.report(), counts
     finally:
         client.shutdown()
+
+
+def _check_counts(counts, rep, budget=2):
+    """Every row block ran exactly once through the kernel; the launches
+    are at least one per ``budget`` row blocks and at most 2 per chunk."""
+    row_blocks, launches = counts
+    assert row_blocks == 3 * 8
+    assert -(-row_blocks // budget) <= launches <= 2 * rep["chunks"]
 
 
 def _once(fn):
@@ -132,18 +166,19 @@ def _once(fn):
 def test_cuda_client_preempt_resume_is_bit_identical(cuda_device):
     """Same-region (device clone on the region's stream) and cross-region
     (materialize after the producing stream's event) resumes both equal
-    an unpreempted run, and no row block runs twice."""
+    an unpreempted run, no row block runs twice, and the launches cover
+    runs of row blocks (at most 2 a chunk)."""
     img = make_image(np.random.default_rng(3), 200)  # pads to 256: 8 blocks
     base, rep, n = _run(img)
     assert rep["reconfig"]["regions"][0]["kernel_mode"] == "cuda"
-    assert n == 3 * 8
+    _check_counts(n, rep)
     want = ref.iterated_blur_ref(torch.tensor(img, device=cuda_device), 3,
                                  "median").cpu().numpy()
     np.testing.assert_array_equal(base.result[1], want)
 
     same, rep, n = _run(img, hook=_once(lambda r, t: r.request_preempt()))
     assert same.n_preemptions == 1 and rep["host_spills_avoided"] == 1
-    assert n == 3 * 8
+    _check_counts(n, rep)
 
     def move(region, task):
         region.begin_drain()
@@ -151,7 +186,7 @@ def test_cuda_client_preempt_resume_is_bit_identical(cuda_device):
 
     cross, rep, n = _run(img, n_regions=2, hook=_once(move))
     assert cross.n_preemptions == 1 and len(set(cross.region_history)) == 2
-    assert n == 3 * 8
+    _check_counts(n, rep)
     for t in (same, cross):
         for got, exp in zip(t.result, base.result):
             np.testing.assert_array_equal(got, exp)
@@ -217,10 +252,18 @@ def _paged(rng, device, B=8, H=32, KV=8, hd=128, BS=16, T_blk=8, NB=65):
     return q, k_pool, v_pool, tables
 
 
+# groups 1 / 4 / 8 at hd 128 and 64, then the edges of the kernel's design:
+# a head dim that is not a multiple of 4 (4-byte loads) and one past a
+# 128-dim tile (two output tiles)
+DECODE_SHAPES = [(32, 8, 128), (32, 32, 128), (32, 4, 128), (32, 8, 64),
+                 (32, 4, 64), (8, 4, 30), (8, 2, 200)]
+
+
 @pytest.mark.parametrize("window", [None, 5])
-def test_cuda_decode_matches_plain_version(cuda_device, window):
-    rng = np.random.default_rng(9)
-    q, k_pool, v_pool, tables = _paged(rng, cuda_device)
+@pytest.mark.parametrize("H,KV,hd", DECODE_SHAPES)
+def test_cuda_decode_matches_plain_version(cuda_device, window, H, KV, hd):
+    rng = np.random.default_rng(9 + H + KV + hd)
+    q, k_pool, v_pool, tables = _paged(rng, cuda_device, H=H, KV=KV, hd=hd)
     pos = torch.tensor([0, 1, 17, 64, 100, 127, 128, 128], dtype=torch.int32,
                        device=cuda_device)
     before = DK.LAUNCHES.total()
@@ -242,17 +285,23 @@ def test_cuda_decode_matches_plain_version(cuda_device, window):
     torch.testing.assert_close(got, want, rtol=0, atol=F32_TOL)
 
 
-def test_cuda_paged_bitwise_equals_gather_plus_contiguous(cuda_device):
-    rng = np.random.default_rng(10)
-    q, k_pool, v_pool, tables = _paged(rng, cuda_device)
-    for pos in ([1, 9, 25, 33, 64, 80, 127, 128], 128):
+@pytest.mark.parametrize("H,KV,hd", DECODE_SHAPES)
+def test_cuda_paged_bitwise_equals_gather_plus_contiguous(cuda_device, H, KV,
+                                                          hd):
+    rng = np.random.default_rng(10 + H + KV + hd)
+    q, k_pool, v_pool, tables = _paged(rng, cuda_device, H=H, KV=KV, hd=hd)
+    k_lin = dref.gather_kv_pages(k_pool, tables)
+    v_lin = dref.gather_kv_pages(v_pool, tables)
+    for pos in ([1, 9, 25, 33, 64, 80, 127, 128], 128,
+                [0, 0, 3, 0, 7, 0, 9, 0]):
         p = (torch.tensor(pos, dtype=torch.int32, device=cuda_device)
              if isinstance(pos, list) else pos)
-        paged = dops.paged_decode_attention(q, k_pool, v_pool, tables, p)
-        dense = dops.decode_attention(
-            q, dref.gather_kv_pages(k_pool, tables),
-            dref.gather_kv_pages(v_pool, tables), p)
+        paged = DK.launch_paged(q, k_pool, v_pool, tables, p, window=None,
+                                scale=hd ** -0.5)
+        dense = DK.launch(q, k_lin, v_lin, p, window=None, scale=hd ** -0.5)
         assert torch.equal(paged, dense)
+        want = dref.decode_attention(q, k_lin, v_lin, p, scale=hd ** -0.5)
+        torch.testing.assert_close(paged, want, rtol=0, atol=F32_TOL)
 
 
 def test_cuda_attention_wrappers_reject_bad_inputs(cuda_device):
