@@ -36,8 +36,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the host<->device copies one task pays outside its chunks;
 6. flash check: the flash-attention kernel against its plain version at the
    serving prefill shape (q [4, 32, 16, 128], k/v [4, 8, 128, 128] strided
-   as the prefill passes them), q_offset 0 / 64 / 112, f32 (max abs
-   difference <= 2e-5) and bf16 (<= 2e-2);
+   as the prefill passes them), q_offset 0 / 64 / 112, then at the edges of
+   its block plan and staging (``FLASH_EDGES``: groups 1, 8 and 32, hd 8,
+   16, 30 and 120, windows, a ragged T and S, 2 and 3 passes of 128 keys),
+   without the causal mask (``FLASH_NON_CAUSAL``), and on the serving layout
+   shifted by one element (no row 16-byte aligned), f32 (max abs
+   difference <= 2e-5) and bf16 (<= 2e-2); with window 0 every row must be
+   exactly 0;
 7. decode check: the paged decode kernel against its plain version at
    q [8, 32, 1, 128], pools [65, 16, 8, 128], tables [8, 8], per-row
    positions including 0, and the contiguous entry on a ring that wrapped
@@ -147,6 +152,27 @@ SERVE_CHUNK_BUDGET = 2     # 4 chunks per prefill task and per decode round
 PREEMPT_EVERY = 3          # every 3rd decode round, at its 2nd chunk
 F32_TOL, BF16_TOL = 2e-5, 2e-2
 FLASH_OFFSETS = (0, 64, 112)
+# B2's edges beyond the serving shape, (B, H, KV, T, S, hd, q_offset,
+# window): groups 1, 8 and 32 (16 heads a block), hd 16 and 120, a window,
+# a ragged T against a ragged S, hd 8, hd 30 (element staging), two and
+# three passes of 128 keys (the first skipped by a window); then the
+# serving layout shifted by one element (nothing 16-byte aligned) and a
+# window of 0 (every row fully masked, exactly 0)
+FLASH_EDGES = ((4, 32, 32, 16, 128, 128, 112, None),
+               (4, 32, 4, 16, 128, 128, 112, None),
+               (1, 32, 1, 16, 128, 128, 48, None),
+               (4, 32, 8, 16, 128, 16, 64, None),
+               (4, 32, 8, 16, 128, 120, 112, None),
+               (4, 32, 8, 16, 128, 128, 96, 40),
+               (2, 6, 2, 40, 70, 64, 30, None),
+               (2, 8, 2, 16, 64, 8, 48, 9),
+               (2, 4, 2, 16, 48, 30, 32, None),
+               (1, 4, 4, 16, 260, 128, 240, None),
+               (2, 8, 2, 16, 300, 64, 270, 100))
+# without the causal mask: three passes with keys past every row, and a
+# window that skips the first pass
+FLASH_NON_CAUSAL = ((4, 32, 8, 16, 300, 128, 0, None),
+                    (2, 8, 2, 16, 384, 64, 300, 150))
 # B3's edges beyond the serving shape, (H, KV, hd): groups 1 and 8, hd 64
 DECODE_EDGES = ((32, 32, 128), (32, 4, 128), (32, 8, 64), (32, 4, 64))
 REPLACES_ATTN = {
@@ -480,26 +506,64 @@ def attention_phases(dev, card: str) -> list:
         return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
                             device=dev)
 
+    def flash_case(what, qe, ke, ve, off, win, tol, f32, causal=True):
+        """Max abs error of one launch against the plain version; raises
+        past ``tol``.  Returns 0 for bf16: the record keeps f32's."""
+        sc = 1.0 / qe.shape[-1] ** 0.5
+        got = FK.launch(qe, ke, ve, causal=causal, window=win, q_offset=off,
+                        scale=sc)
+        torch.cuda.synchronize()
+        want = FR.flash_attention(qe, ke, ve, causal=causal, window=win,
+                                  q_offset=off, scale=sc)
+        err = float((got.float() - want.float()).abs().max())
+        plan = FK.plan(qe.shape[0], qe.shape[1], ke.shape[1], qe.shape[2],
+                       ke.shape[2], qe.shape[3])
+        log(f"[flash] {what} ({plan}): max_abs_err {err:.3e} (tolerance "
+            f"{tol:g})")
+        if not err <= tol:
+            raise AssertionError(f"flash {what}: max_abs_err {err}")
+        return err if f32 else 0.0
+
     # 6. flash check, with q and the cache laid out as the prefill has them
     q = randn(PB, C, H, hd).transpose(1, 2)
     k_new, v_new = randn(PB, S, KV, hd), randn(PB, S, KV, hd)
     k, v = k_new.transpose(1, 2), v_new.transpose(1, 2)
     flash_err = 0.0
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        name, f32 = str(dtype)[6:], dtype == torch.float32
         qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
         for off in FLASH_OFFSETS:
-            got = FK.launch(qd, kd, vd, causal=True, window=None,
-                            q_offset=off, scale=scale)
-            torch.cuda.synchronize()
-            want = FR.flash_attention(qd, kd, vd, causal=True, q_offset=off,
-                                      scale=scale)
-            err = float((got.float() - want.float()).abs().max())
-            log(f"[flash] {str(dtype)[6:]} q_offset {off}: max_abs_err "
-                f"{err:.3e} (tolerance {tol:g})")
-            if not err <= tol:
-                raise AssertionError(f"flash {dtype} q_offset {off}: {err}")
-            if dtype == torch.float32:
-                flash_err = max(flash_err, err)
+            flash_err = max(flash_err, flash_case(
+                f"{name} q_offset {off}", qd, kd, vd, off, None, tol, f32))
+        for B_, H_, KV_, T_, S_, hd_, off, win in FLASH_EDGES:
+            qe = randn(B_, H_, T_, hd_).to(dtype)
+            ke, ve = (randn(B_, KV_, S_, hd_).to(dtype) for _ in range(2))
+            flash_err = max(flash_err, flash_case(
+                f"{name} B {B_} H {H_} KV {KV_} T {T_} S {S_} hd {hd_} "
+                f"q_offset {off} window {win}", qe, ke, ve, off, win, tol,
+                f32))
+        for B_, H_, KV_, T_, S_, hd_, off, win in FLASH_NON_CAUSAL:
+            qe = randn(B_, H_, T_, hd_).to(dtype)
+            ke, ve = (randn(B_, KV_, S_, hd_).to(dtype) for _ in range(2))
+            flash_err = max(flash_err, flash_case(
+                f"{name} non-causal B {B_} H {H_} KV {KV_} T {T_} S {S_} hd "
+                f"{hd_} q_offset {off} window {win}", qe, ke, ve, off, win,
+                tol, f32, causal=False))
+        q_store = randn(PB * C * H * hd + 1).to(dtype)
+        kv_store = randn(2, PB * S * KV * hd + 1).to(dtype)
+        qu = q_store[1:].view(PB, C, H, hd).transpose(1, 2)
+        ku, vu = (kv_store[i, 1:].view(PB, S, KV, hd).transpose(1, 2)
+                  for i in range(2))
+        for off in FLASH_OFFSETS:
+            flash_err = max(flash_err, flash_case(
+                f"{name} unaligned serving layout q_offset {off}", qu, ku, vu,
+                off, None, tol, f32))
+        dead = FK.launch(qu, ku, vu, causal=True, window=0, q_offset=64,
+                         scale=scale)
+        torch.cuda.synchronize()
+        if not bool((dead == 0).all()):
+            raise AssertionError(f"flash {name} window 0: a row is not 0")
+        log(f"[flash] {name} window 0: every row exactly 0")
 
     # 7. decode check
     B, T_blk = SERVING["max_slots"], SERVING["max_ctx"] // BS

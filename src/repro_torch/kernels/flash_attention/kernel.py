@@ -3,14 +3,14 @@
 
 Replaces the reference's Pallas ``flash_attention_pallas``
 (``repro/kernels/flash_attention/kernel.py``).  The CUDA source carries the
-design note.  This module checks device, dtype, shapes and strides,
-launches on the current stream, raises if the launch was refused, and
-counts launches in ``LAUNCHES`` (key ``"flash"``).
+design note.  This module plans the launch (``plan``), checks device,
+dtype, shapes and strides, launches on the current stream, raises if the
+launch was refused, and counts launches in ``LAUNCHES`` (key ``"flash"``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -19,15 +19,31 @@ from repro_torch.kernels.native import LaunchCounter, load_library
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 LAUNCHES = LaunchCounter()
+ROWS = 16                  # query rows a block: heads x positions
+KEYS_PER_PASS = 128        # keys a block stages and scores at once
 
 _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+
+
+class Plan(NamedTuple):
+    heads_per_block: int   # heads of a GQA group that share a block's K/V
+    positions: int         # consecutive query positions a block takes
+
+
+def plan(B: int, H: int, KV: int, T: int, S: int, hd: int) -> Plan:
+    """Heads per block: the most of 16, 8, 4, 2, 1 that divides the group,
+    so each staged K/V row serves as many heads as a block can hold; the
+    rest of the block's 16 rows are consecutive positions."""
+    group = H // KV
+    g = next(g for g in (16, 8, 4, 2, 1) if group % g == 0)
+    return Plan(g, ROWS // g)
 
 
 def _lib():
     fn = load_library("flash_attention").flash_attention_fwd
     if fn.argtypes is None:
         fn.argtypes = ([_P, _LL, _LL, _LL] * 3 + [_P] + [_I] * 6
-                       + [_I, _I, _I, _F, _I, _P])
+                       + [_I, _I, _I, _F, _I, _I, _P])
         fn.restype = ctypes.c_int
     return fn
 
@@ -72,7 +88,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  v.data_ptr(), *v.stride()[:3], o.data_ptr(), B, H, KV, T, S,
                  hd, int(q_offset), int(bool(causal)),
                  -1 if window is None else int(window), float(scale),
-                 DTYPES[q.dtype], stream)
+                 DTYPES[q.dtype], plan(B, H, KV, T, S, hd).heads_per_block,
+                 stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
                            f"{err}")

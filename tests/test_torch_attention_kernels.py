@@ -24,6 +24,7 @@ from repro_torch.kernels.decode_attention import ref as dref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 
 F32_TOL, BF16_TOL = 2e-5, 2e-2
+MAX_FLOOR, DENOM_FLOOR = -0.5e30, 1e-30
 
 
 def _normal(rng, shape):
@@ -84,6 +85,170 @@ def test_plain_flash_fully_masked_row_is_zero():
     want = ref_flash(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
                      jnp.asarray(v.numpy()), causal=True, window=0)
     np.testing.assert_array_equal(np.asarray(want), out.numpy())
+
+
+# -- B2's order, rehearsed in plain torch -------------------------------------
+# ``csrc/flash_attention.cu`` computes in another order than the plain
+# version: a block takes 16 query rows of one (batch, KV head), ``plan``'s
+# heads of the group times consecutive positions (position-major); the
+# keys any of its rows can see are taken in passes of 128 keys (passes
+# wholly outside that range are skipped, keys outside it masked).  Both
+# products run on the tensor cores as three TF32 products, a b = a_lo b_hi
+# + a_hi b_lo + a_hi b_hi (a_hi the TF32 part of a, a_lo the rest); one
+# online softmax rescale runs per pass (max started at -1e30 and clamped
+# at -0.5e30, denominator floored at 1e-30).  This model repeats the
+# passes and the three-way split (not the tensor cores' order of
+# addition), so a run without a card checks that the split and the order
+# stay within 2e-5 of the reference's Pallas kernel.
+
+from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
+
+NEG_INF = -1e30
+
+
+def _tf32(x):
+    """What the tensor cores read of an f32 register: sign, exponent and
+    the top 10 mantissa bits."""
+    bits = x.contiguous().view(torch.int32)
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b as the kernel's three TF32 products: hi is the TF32 part of a
+    value, lo the rest (exact in f32), read by the tensor cores as TF32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _kernel_order_flash(q, k, v, *, causal, window, q_offset, scale):
+    """q [B,H,T,hd], k/v [B,KV,S,hd] f32 -> [B,H,T,hd] in the kernel's
+    order, every block of a position tile at once."""
+    B, H, T, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    hb, npos = FK.plan(B, H, KV, T, S, hd)
+    nh = H // KV // hb
+    kt = FK.KEYS_PER_PASS
+    out = torch.zeros_like(q)
+    for t0 in range(0, T, npos):
+        t1 = min(T, t0 + npos)
+        # rows of a block, position-major: [B, KV, nh, (t, head), hd]
+        qb = (q[:, :, t0:t1] * scale).reshape(B, KV, nh, hb, t1 - t0, hd)
+        qb = qb.transpose(3, 4).reshape(B, KV, nh, (t1 - t0) * hb, hd)
+        qpos = (q_offset + torch.arange(t0, t1)).repeat_interleave(hb)
+        kend = min(S, q_offset + t1) if causal else S
+        kbeg = max(0, q_offset + t0 - window + 1) if window is not None else 0
+        m = torch.full(qb.shape[:-1], NEG_INF)
+        lsum = torch.zeros(qb.shape[:-1])
+        acc = torch.zeros(qb.shape)
+        for base in range(kbeg // kt * kt, kend if kend > kbeg else 0, kt):
+            keys = torch.arange(base, base + kt)
+            seen = (keys >= kbeg) & (keys < kend)
+            idx = keys.clamp(max=S - 1)
+            kx = torch.where(seen[:, None], k[:, :, idx], 0.0)[:, :, None]
+            vx = torch.where(seen[:, None], v[:, :, idx], 0.0)[:, :, None]
+            s = _mm3(qb, kx.transpose(-1, -2))
+            ok = seen[None, :].expand(len(qpos), kt)
+            if causal:
+                ok = ok & (keys[None, :] <= qpos[:, None])
+            if window is not None:
+                ok = ok & (qpos[:, None] - keys[None, :] < window)
+            s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1)).clamp_min(MAX_FLOOR)
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            lsum = lsum * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + _mm3(p, vx)
+            m = m_new
+        o = acc / lsum.clamp_min(DENOM_FLOOR)[..., None]
+        o = o.reshape(B, KV, nh, t1 - t0, hb, hd).transpose(3, 4)
+        out[:, :, t0:t1] = o.reshape(B, H, t1 - t0, hd)
+    return out
+
+
+@pytest.mark.parametrize("B,H,KV,T,S,hd,off,window", [
+    (4, 32, 8, 16, 128, 128, 0, None),      # the serving prefill shape
+    (4, 32, 8, 16, 128, 128, 64, None),
+    (4, 32, 8, 16, 128, 128, 112, None),
+    (2, 8, 8, 16, 128, 128, 48, None),      # group 1: 16 positions a block
+    (2, 32, 4, 16, 128, 128, 112, None),    # group 8: 2 positions a block
+    (1, 16, 1, 8, 64, 64, 56, None),        # group 16 (the most a block holds)
+    (2, 6, 2, 16, 48, 32, 32, None),        # group 3: one head a block
+    (2, 4, 2, 64, 64, 32, None, None),      # the reference's hd sweep
+    (1, 4, 1, 64, 64, 64, None, None),
+    (1, 4, 4, 64, 64, 120, None, None),     # hd 120: no lane padding
+    (1, 8, 8, 64, 64, 128, None, None),
+    (1, 4, 2, 64, 64, 64, None, 16),        # a sliding window
+    (1, 2, 2, 40, 40, 64, None, None),      # ragged positions and keys
+    (2, 4, 2, 16, 70, 16, 30, 9),           # window and ragged S at an offset
+    (1, 4, 2, 16, 256, 64, 240, None),      # two passes of 128 keys
+    (1, 4, 2, 16, 384, 64, 368, 200),       # a window that skips pass 0
+])
+def test_kernel_order_flash_matches_reference(B, H, KV, T, S, hd, off,
+                                              window):
+    rng = np.random.default_rng(B * 1000 + H * 10 + T + hd + (off or 0))
+    q = _normal(rng, (B, H, T, hd))
+    k, v = _normal(rng, (B, KV, S, hd)), _normal(rng, (B, KV, S, hd))
+    q_offset = S - T if off is None else off
+    want = ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=True, window=window,
+                     q_offset=jnp.asarray([q_offset]))
+    got = _kernel_order_flash(torch.tensor(q), torch.tensor(k),
+                              torch.tensor(v), causal=True, window=window,
+                              q_offset=q_offset, scale=1.0 / hd ** 0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=F32_TOL)
+
+
+@pytest.mark.parametrize("B,H,KV,T,S,hd,off,window", [
+    (1, 4, 2, 16, 256, 64, 0, None),        # every pass, keys past the rows
+    (2, 8, 2, 16, 384, 32, 300, 150),       # a window that skips pass 0
+])
+def test_kernel_order_flash_non_causal_matches_reference(B, H, KV, T, S, hd,
+                                                         off, window):
+    """Without the causal mask a block takes every pass from its window's
+    first key to S."""
+    rng = np.random.default_rng(S + hd + off)
+    q = _normal(rng, (B, H, T, hd))
+    k, v = _normal(rng, (B, KV, S, hd)), _normal(rng, (B, KV, S, hd))
+    want = ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=False, window=window,
+                     q_offset=jnp.asarray([off]))
+    got = _kernel_order_flash(torch.tensor(q), torch.tensor(k),
+                              torch.tensor(v), causal=False, window=window,
+                              q_offset=off, scale=1.0 / hd ** 0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=F32_TOL)
+
+
+def test_kernel_order_flash_fully_masked_rows_are_zero():
+    """Window 0: no row sees a key, no pass is taken, and every output is
+    exactly 0, as the reference's."""
+    rng = np.random.default_rng(2)
+    q = _normal(rng, (2, 8, 16, 32))
+    k, v = _normal(rng, (2, 2, 48, 32)), _normal(rng, (2, 2, 48, 32))
+    got = _kernel_order_flash(torch.tensor(q), torch.tensor(k),
+                              torch.tensor(v), causal=True, window=0,
+                              q_offset=32, scale=32 ** -0.5)
+    assert bool((got == 0).all())
+    want = ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=True, window=0, q_offset=jnp.asarray([32]))
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((4, 32, 8, 16, 128, 128), FK.Plan(4, 4)),    # the serving shape
+    ((4, 32, 32, 16, 128, 128), FK.Plan(1, 16)),  # group 1
+    ((4, 32, 4, 16, 128, 128), FK.Plan(8, 2)),    # group 8
+    ((1, 32, 1, 16, 128, 128), FK.Plan(16, 1)),   # group 32: two blocks a position
+    ((2, 6, 2, 16, 48, 120), FK.Plan(1, 16)),     # group 3
+])
+def test_flash_plan(shape, want):
+    B, H, KV, T, S, hd = shape
+    got = FK.plan(*shape)
+    assert got == want
+    assert got.heads_per_block * got.positions == FK.ROWS
+    assert (H // KV) % got.heads_per_block == 0
 
 
 # -- decode attention (B3) ----------------------------------------------------
@@ -170,8 +335,6 @@ def test_plain_decode_pos_zero_row_is_exactly_zero():
 # reference.
 
 from repro_torch.kernels.decode_attention import kernel as DK  # noqa: E402
-
-MAX_FLOOR, DENOM_FLOOR = -0.5e30, 1e-30
 
 
 def _combine(states):

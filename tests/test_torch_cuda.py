@@ -208,6 +208,22 @@ def _randn(rng, shape, device, dtype=torch.float32):
     (2, 4, 2, 8, 32, 16, 24, None),         # the reference's q_offset sweep
     (2, 4, 4, 40, 40, 64, None, 7),         # ragged tiles, sliding window
     (1, 2, 1, 3, 5, 120, None, None),       # hd 120 (no lane padding)
+    # the edges of the block plan and the staging: groups 1, 8 and 32 (16
+    # heads a block), hd 16 and 120, a window at an offset, a ragged T
+    # against a ragged S, hd 8 (one k-step), hd 30 (element staging: rows
+    # not 16-byte aligned)
+    (4, 32, 32, 16, 128, 128, 112, None),
+    (4, 32, 4, 16, 128, 128, 112, None),
+    (1, 32, 1, 16, 128, 128, 48, None),
+    (4, 32, 8, 16, 128, 16, 64, None),
+    (4, 32, 8, 16, 128, 120, 112, None),
+    (4, 32, 8, 16, 128, 128, 96, 40),
+    (2, 6, 2, 40, 70, 64, 30, None),
+    (2, 8, 2, 16, 64, 8, 48, 9),
+    (2, 4, 2, 16, 48, 30, 32, None),
+    # passes of 128 keys: two, and a window that skips the first of three
+    (1, 4, 4, 16, 260, 128, 240, None),
+    (2, 8, 2, 16, 300, 64, 270, 100),
 ])
 def test_cuda_flash_matches_plain_version(cuda_device, dtype, tol, B, H, KV,
                                           T, S, hd, off, window):
@@ -221,6 +237,28 @@ def test_cuda_flash_matches_plain_version(cuda_device, dtype, tol, B, H, KV,
     torch.cuda.synchronize()
     assert FK.LAUNCHES["flash"] == before + 1
     want = fref.flash_attention(q, k, v, causal=True, window=window,
+                                q_offset=off)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("B,H,KV,T,S,hd,off,window", [
+    (4, 32, 8, 16, 300, 128, 0, None),      # three passes, keys past the rows
+    (2, 8, 2, 16, 384, 64, 300, 150),       # a window that skips pass 0
+])
+def test_cuda_flash_non_causal_matches_plain_version(cuda_device, dtype, tol,
+                                                     B, H, KV, T, S, hd, off,
+                                                     window):
+    """Without the causal mask a block takes every pass from its window's
+    first key to S."""
+    rng = np.random.default_rng(S + hd + off)
+    q = _randn(rng, (B, H, T, hd), cuda_device, dtype)
+    k = _randn(rng, (B, KV, S, hd), cuda_device, dtype)
+    v = _randn(rng, (B, KV, S, hd), cuda_device, dtype)
+    got = fops.flash_attention(q, k, v, causal=False, window=window,
+                               q_offset=off)
+    want = fref.flash_attention(q, k, v, causal=False, window=window,
                                 q_offset=off)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 
@@ -239,6 +277,28 @@ def test_cuda_flash_takes_strided_cache_and_masks_to_zero(cuda_device):
     torch.testing.assert_close(got, want, rtol=0, atol=F32_TOL)
     dead = fops.flash_attention(q, k_new.transpose(1, 2),
                                 v_new.transpose(1, 2), q_offset=5, window=0)
+    assert bool((dead == 0).all())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("off", [0, 112])
+def test_cuda_flash_unaligned_q_and_cache(cuda_device, dtype, tol, off):
+    """The serving layout ([PB, C, H, hd] storage for q, [PB, P, KV, hd]
+    for the cache), each view shifted by one element so no row starts
+    16-byte aligned: q is read element by element and the cache is staged
+    element by element."""
+    rng = np.random.default_rng(off + 3)
+    q_store = _randn(rng, (4 * 16 * 32 * 128 + 1,), cuda_device, dtype)
+    q = q_store[1:].view(4, 16, 32, 128).transpose(1, 2)
+    kv_store = _randn(rng, (2, 4 * 128 * 8 * 128 + 1), cuda_device, dtype)
+    k, v = (kv_store[i, 1:].view(4, 128, 8, 128).transpose(1, 2)
+            for i in range(2))
+    assert q.data_ptr() % 16 and k.data_ptr() % 16
+    got = fops.flash_attention(q, k, v, q_offset=off)
+    want = fref.flash_attention(q, k, v, q_offset=off)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    dead = fops.flash_attention(q, k, v, q_offset=off, window=0)
     assert bool((dead == 0).all())
 
 
