@@ -34,6 +34,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    under each of the kernel's rows per thread (1, 2, 4, 8); then the main
    path's workload once more without the injected slowdown, end to end,
    and the host<->device copies one task pays outside its chunks;
+5a. elastic pool: ``repro_torch.Client(backend=Scheduler(Shell(n_regions=1),
+   pool=RegionPool(shell, min_regions=1, max_regions=2)))`` on cuda:0
+   (``POOL_BURST``): at the first chunk boundary of the first priority-4
+   MedianBlur (iters=3) the rest of the burst is submitted,
+   ``request_grow()`` must bring the pool to 2 regions (a second CUDA
+   stream) and ``request_shrink(rid)`` drains the region running that
+   task: it is checkpoint-preempted, requeued, finished on the survivor
+   (through the retired region's committed bank), and its (ping, pong)
+   must equal an unpreempted run of the port bitwise; then a priority-0
+   GaussianBlur arrives.  Row blocks exactly sum(iters x 128); one grow and
+   one shrink; prints ``grows``, ``shrinks``, ``resize_events``,
+   ``region_seconds`` and ``utilization`` from ``report()["pool"]``;
+5b. the deprecated ``Controller`` on cuda:0 (two regions): a priority-1
+   MedianBlur (iters=2) and a priority-3 GaussianBlur, ``run()``, then
+   ``wait()``; both equal the plain version, row blocks exact;
+5c. the preemption overhead (the paper's metric i and its §6.3 headline):
+   one seeded stream in the reference harness's mix (MedianBlur over 1/2/3
+   iterations and GaussianBlur, 5 priorities, seed 15; 12 tasks at 4096^2,
+   arrivals uniform over ``OVERHEAD_SPAN_S``) through ``Scheduler.run`` at
+   1 and 2 regions, preemption off, on, on, off at each, twice
+   (``OVERHEAD_ROUNDS``), both bitstreams prewarmed; every image equal to
+   the plain version's, row blocks exactly 16 x sum(iters x 128); prints
+   each arm's tasks/s, preemptions, urgent (priority <= 1) service p50/p99
+   and the serving window a task, then the overhead 1 - tput(on) /
+   tput(off) over all arms and by round (the rounds' spread is the
+   noise), beside the paper's FPGA 1.66 % (1 region) and 4.04 % (2
+   regions);
 6. flash check: the flash-attention kernel against its plain version at the
    serving prefill shape (q [4, 32, 16, 128], k/v [4, 8, 128, 128] strided
    as the prefill passes them), q_offset 0 / 64 / 112, then at the edges of
@@ -130,6 +157,26 @@ RUN_BLOCKS = 8         # the budget: the row blocks of a main-path launch
 BG_ITERS, URGENT_ITERS = 3, 1
 SLOWDOWN_S = 0.005     # stretches each chunk so the preemption surely lands
 GAUSS_TOL = 1e-6
+# [pool]: a burst on a pool grown from 1 to 2 regions, then shrunk back by
+# draining the region that runs the first priority-4 task
+# (kernel, iterations, priority)
+POOL_BURST = (("MedianBlur", 3, 4), ("MedianBlur", 3, 4),
+              ("MedianBlur", 3, 4), ("GaussianBlur", 1, 0))
+# [overhead]: the reference harness's task mix and seed
+# (benchmarks/harness.py:26-38): MedianBlur over 1/2/3 iterations and one
+# iteration of GaussianBlur, 5 priorities, seed 15; 12 tasks at 4096^2
+HARNESS_MIX = {"MedianBlur": ("MedianBlur", 1),
+               "MedianBlur2": ("MedianBlur", 2),
+               "MedianBlur3": ("MedianBlur", 3),
+               "GaussianBlur": ("GaussianBlur", 1)}
+OVERHEAD_SEED = 15
+OVERHEAD_TASKS = 12
+# arrivals uniform over [0, OVERHEAD_SPAN_S]: a mean spacing of 50 ms, below
+# one task's service on an H100, about 100 ms with its pageable copies, so
+# the card stays busy (the first arm prints both)
+OVERHEAD_SPAN_S = 0.6
+OVERHEAD_ROUNDS = 2   # off, on, on, off, twice at each region count
+PAPER_OVERHEAD_PCT = {1: 1.66, 2: 4.04}   # FPGA results (PAPER.md §6.3)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 # the column-sort median: 4 sorted vertical triples (6 min/max each) shared
@@ -302,22 +349,11 @@ def serve(imgs, slowdown_s: float):
     priority-4 MedianBlur tasks, then — once both have retired a chunk — a
     priority-0 GaussianBlur.  The launch and row-block counters are zeroed
     just before and read just after.  Returns (background tasks, urgent
-    task, report, wall seconds, {body: (row blocks, launches)})."""
-    import numpy as np
-
+    task, report, wall seconds, ({body: row blocks}, {body: launches}))."""
     import repro_torch
-    from repro_torch.controller.kernels import get_kernel
-    from repro_torch.core.task import Task
-    from repro_torch.kernels.blur import kernel as K
 
-    def task(kernel, img, iters, priority):
-        return Task(kernel=kernel, priority=priority,
-                    args=get_kernel(kernel).bundle(
-                        img, np.zeros_like(img), H=SIZE, W=SIZE,
-                        iters=iters))
-
-    tasks = [task("MedianBlur", imgs[i], BG_ITERS, 4) for i in (0, 1)]
-    urgent = task("GaussianBlur", imgs[2], URGENT_ITERS, 0)
+    tasks = [_blur_task("MedianBlur", imgs[i], BG_ITERS, 4) for i in (0, 1)]
+    urgent = _blur_task("GaussianBlur", imgs[2], URGENT_ITERS, 0)
     started, both_started = set(), threading.Event()
     lock = threading.Lock()
 
@@ -332,8 +368,7 @@ def serve(imgs, slowdown_s: float):
         for r in client.shell.regions:
             r.slowdown_s = slowdown_s
             r.on_chunk = on_chunk
-        K.LAUNCHES.reset()
-        K.ROW_BLOCKS.reset()
+        _reset_counts()
         t0 = time.perf_counter()
         handles = [client.submit(t) for t in tasks]
         if not both_started.wait(TIMEOUT_S):
@@ -342,8 +377,7 @@ def serve(imgs, slowdown_s: float):
         for h in handles:
             h.result(timeout=TIMEOUT_S)
         wall_s = time.perf_counter() - t0
-        counts = {k: (K.ROW_BLOCKS[k], K.LAUNCHES[k])
-                  for k in ("median", "gaussian")}
+        counts = _counts()
         rep = client.drain(TIMEOUT_S)
     finally:
         client.shutdown()
@@ -364,6 +398,347 @@ def log_serve(tag: str, tasks, urgent, rep, wall_s: float, slowdown_s: float):
         f"chunks_pipelined {rep['chunks_pipelined']}, chunks_discarded "
         f"{rep['chunks_discarded']}, dispatch_stall_s "
         f"{rep['dispatch_stall_s']:.6f}")
+
+
+def _blur_task(kernel: str, img, iters: int, priority: int,
+               arrival_time: float = 0.0):
+    import numpy as np
+
+    from repro_torch.controller.kernels import get_kernel
+    from repro_torch.core.task import Task
+
+    return Task(kernel=kernel, priority=priority, arrival_time=arrival_time,
+                args=get_kernel(kernel).bundle(img, np.zeros_like(img),
+                                               H=SIZE, W=SIZE, iters=iters))
+
+
+def _plain_image(img, iters: int, kernel: str, dev):
+    """The plain PyTorch version's image on the card, back on the host."""
+    import torch
+
+    from repro_torch.kernels.blur import ref as R
+
+    kind = "median" if kernel == "MedianBlur" else "gaussian"
+    return R.iterated_blur_ref(torch.tensor(img, device=dev), iters,
+                               kind).cpu()
+
+
+def _check_result(task, img, iters: int, dev) -> float:
+    import torch
+
+    from repro_torch.kernels.blur.tasks import result_image
+
+    kind = "median" if task.kernel == "MedianBlur" else "gaussian"
+    return check(kind, torch.tensor(result_image(task, iters)),
+                 _plain_image(img, iters, task.kernel, dev))
+
+
+def _counts():
+    from repro_torch.kernels.blur import kernel as K
+
+    return ({k: K.ROW_BLOCKS[k] for k in ("median", "gaussian")},
+            {k: K.LAUNCHES[k] for k in ("median", "gaussian")})
+
+
+def _reset_counts():
+    from repro_torch.kernels.blur import kernel as K
+
+    K.LAUNCHES.reset()
+    K.ROW_BLOCKS.reset()
+
+
+def _want_blocks(specs) -> dict:
+    """Row blocks a set of (kernel, iterations) runs through the kernel:
+    every row block of every pass exactly once."""
+    from repro_torch.kernels.blur.tasks import ROW_BLOCK
+
+    want = {"median": 0, "gaussian": 0}
+    for kernel, iters in specs:
+        kind = "median" if kernel == "MedianBlur" else "gaussian"
+        want[kind] += iters * (SIZE // ROW_BLOCK)
+    return want
+
+
+def _require_counts(tag: str, want: dict):
+    blocks, launches = _counts()
+    log(f"[{tag}] row blocks {blocks} (expected exactly {want}); launches "
+        f"{launches}")
+    if blocks != want:
+        raise AssertionError(f"[{tag}] row-block count {blocks} != {want}")
+    for kind, n in want.items():
+        if n and launches[kind] < 1:
+            raise AssertionError(f"[{tag}] the {kind} kernel never launched")
+
+
+def pool_phase(rng, dev):
+    """5a. ``Client(backend=Scheduler(Shell(n_regions=1), pool=RegionPool(
+    shell, min_regions=1, max_regions=2)))`` on cuda:0.  The first
+    priority-4 MedianBlur runs alone; at its first chunk boundary (its
+    region's ``on_chunk``) the rest of the priority-4 burst is submitted,
+    ``request_grow()`` grows the pool to 2 regions (a second CUDA stream),
+    and ``request_shrink(rid)`` drains the region running it: the task is
+    checkpoint-preempted, requeued and finished on the survivor, and its
+    (ping, pong) must equal an unpreempted run of the port bitwise.  Then a
+    priority-0 GaussianBlur arrives.  Row blocks must be exactly
+    sum(iters x 128)."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.controller.kernels import get_kernel
+    from repro_torch.core.context import ContextRecord
+    from repro_torch.core.pool import RegionPool
+    from repro_torch.core.preemption import run_to_completion
+    from repro_torch.core.scheduler import Scheduler
+    from repro_torch.core.shell import Shell
+    from repro_torch.kernels.blur.tasks import make_image
+
+    imgs = [make_image(rng, SIZE) for _ in POOL_BURST]
+    tasks = [_blur_task(k, im, it, p)
+             for (k, it, p), im in zip(POOL_BURST, imgs)]
+    first, burst, urgent = tasks[0], tasks[1:-1], tasks[-1]
+    shell = Shell(n_regions=1)
+    pool = RegionPool(shell, min_regions=1, max_regions=2)
+    client = repro_torch.Client(backend=Scheduler(shell, pool=pool))
+    handles, drained, errors, grown_at = [], [], [], []
+
+    def on_chunk(region, task):
+        if task is not first or drained:
+            return
+        drained.append(region.rid)
+        handles.extend(client.submit(t) for t in burst)
+        pool.request_grow()
+        deadline = time.perf_counter() + TIMEOUT_S
+        while len(shell.regions) < 2 and time.perf_counter() < deadline:
+            time.sleep(0.001)
+        grown_at.append(len(shell.regions))
+        pool.request_shrink(region.rid)
+        if not region._preempt.wait(TIMEOUT_S):
+            errors.append("the drain never preempted the running task")
+        handles.append(client.submit(urgent))
+
+    try:
+        shell.regions[0].on_chunk = on_chunk
+        _reset_counts()
+        t0 = time.perf_counter()
+        client.submit(first).result(timeout=TIMEOUT_S)
+        for h in handles:  # submitted by the hook at the drain
+            h.result(timeout=TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+        _require_counts("pool", _want_blocks((k, it)
+                                              for k, it, _ in POOL_BURST))
+        deadline = time.perf_counter() + TIMEOUT_S
+        while len(shell.regions) > 1 and time.perf_counter() < deadline:
+            time.sleep(0.001)
+        rep = client.drain(TIMEOUT_S)
+    finally:
+        client.shutdown()
+        shell.shutdown()
+    if errors:
+        raise AssertionError(f"[pool] {errors}")
+    pstats = rep["pool"]
+    log(f"[pool] {rep['n_done']} tasks in {wall_s:.3f} s; grows "
+        f"{pstats['grows']}, shrinks {pstats['shrinks']}, resize_events "
+        f"{pstats['resize_events']}, region_seconds "
+        f"{pstats['region_seconds']:.6f}, utilization "
+        f"{pstats['utilization']:.6f}; regions at the grow {grown_at}, "
+        f"preemptions {rep['preemptions']}")
+    if grown_at != [2] or (pstats["grows"], pstats["shrinks"]) != (1, 1):
+        raise AssertionError(f"[pool] expected one grow to 2 regions and one "
+                             f"shrink: {grown_at}, {pstats}")
+    if len(shell.regions) != 1 or rep["n_done"] != len(tasks):
+        raise AssertionError(f"[pool] {len(shell.regions)} regions left, "
+                             f"{rep['n_done']} tasks done")
+    if first.n_preemptions < 1 or len(set(first.region_history)) != 2:
+        raise AssertionError(f"[pool] the drained task was not resumed on "
+                             f"the survivor: {first.region_history}")
+    # the drained task against an unpreempted run of the port on the card
+    kd = get_kernel(first.kernel)
+    bufs, ints, floats = first.args.padded()
+    _, state, _ = run_to_completion(
+        kd.fn, ContextRecord.fresh(), tuple(torch.tensor(b, device=dev)
+                                            for b in bufs),
+        ints, floats, budget=kd.default_budget)
+    for i, name in enumerate(("ping", "pong")):
+        if not np.array_equal(first.result[i], state[i].cpu().numpy()):
+            raise AssertionError(f"[pool] the drained task's {name} differs "
+                                 f"from the unpreempted run")
+    log(f"[pool] drained task #{first.tid}: preempted "
+        f"{first.n_preemptions}x on regions {first.region_history}, (ping, "
+        f"pong) bitwise equal to the unpreempted run")
+    del state
+    for (kernel, iters, _), t, im in zip(POOL_BURST, tasks, imgs):
+        err = _check_result(t, im, iters, dev)
+        log(f"[pool] task #{t.tid} {kernel} x{iters} (priority "
+            f"{t.priority}): preempted {t.n_preemptions}x on regions "
+            f"{t.region_history}, max_abs_err {err:.3e}")
+
+
+def controller_phase(rng, dev):
+    """5b. The deprecated ``Controller`` (``tests/test_system.py::
+    test_controller_end_to_end``) on cuda:0: two launches, ``run()``, then
+    ``wait()``; every result equals the plain version."""
+    import warnings
+
+    from repro_torch.controller import Controller
+    from repro_torch.controller.hittile import HitTile
+    from repro_torch.core.shell import Shell
+    from repro_torch.kernels.blur.tasks import make_image
+
+    img = make_image(rng, SIZE)
+    shell = Shell(n_regions=2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        ctrl = Controller(shell)
+    try:
+        _reset_counts()
+        t1 = ctrl.launch("MedianBlur", (HitTile.of(img),
+                                        HitTile.zeros(img.shape)),
+                         priority=1, H=SIZE, W=SIZE, iters=2)
+        t2 = ctrl.launch("GaussianBlur", (HitTile.of(img),
+                                          HitTile.zeros(img.shape)),
+                         priority=3, H=SIZE, W=SIZE, iters=1)
+        rep = ctrl.run()
+        for t in (t1, t2):
+            ctrl.wait(t, timeout=TIMEOUT_S)
+        _require_counts("controller", _want_blocks((("MedianBlur", 2),
+                                                    ("GaussianBlur", 1))))
+    finally:
+        ctrl.shutdown()
+    if rep["n_done"] != 2:
+        raise AssertionError(f"[controller] {rep['n_done']} of 2 tasks done")
+    for t, iters in ((t1, 2), (t2, 1)):
+        err = _check_result(t, img, iters, dev)
+        log(f"[controller] task #{t.tid} {t.kernel} x{iters}: "
+            f"{t.status.value} on regions {t.region_history}, max_abs_err "
+            f"{err:.3e}")
+
+
+def overhead_phase(rng_seed: int, dev) -> dict:
+    """5c. The paper's metric (i) and its §6.3 headline on the card: one
+    seeded stream (the reference harness's mix, ``HARNESS_MIX``, seed 15,
+    12 tasks at 4096^2, arrivals uniform over ``OVERHEAD_SPAN_S``) through
+    ``Scheduler.run`` at 1 and at 2 regions, preemption off and on, the
+    arms alternated off, on, on, off at each region count in this one
+    process, twice (``OVERHEAD_ROUNDS``), both bitstreams prewarmed.
+    Every arm's images must equal the plain version's.  Prints each arm's
+    tasks/s, preemptions and urgent (priority <= 1) service time p50/p99,
+    then the overhead ``1 - tput(on) / tput(off)`` over all arms and by
+    round, beside the paper's FPGA figures."""
+    import numpy as np
+    import torch
+
+    from repro_torch.controller.kernels import get_kernel
+    from repro_torch.core.scheduler import Scheduler, SchedulerConfig
+    from repro_torch.core.shell import Shell
+    from repro_torch.core.task import Task, generate_random_tasks
+    from repro_torch.kernels.blur.tasks import make_image, result_image
+
+    def arg_factory(r, name):
+        kernel, iters = HARNESS_MIX[name]
+        img = make_image(r, SIZE)
+        return get_kernel(kernel).bundle(img, np.zeros_like(img), H=SIZE,
+                                         W=SIZE, iters=iters)
+
+    t0 = time.perf_counter()
+    stream = generate_random_tasks(np.random.default_rng(rng_seed),
+                                   list(HARNESS_MIX), OVERHEAD_TASKS,
+                                   OVERHEAD_SPAN_S, arg_factory)
+    for t in stream:
+        t.kernel = HARNESS_MIX[t.kernel][0]
+    iters = [int(t.args.ints[2]) for t in stream]
+    want = [_plain_image(np.asarray(t.args.bufs[0]), it, t.kernel,
+                         dev).numpy() for t, it in zip(stream, iters)]
+    log(f"[overhead] stream: {OVERHEAD_TASKS} tasks (seed {rng_seed}), "
+        f"kernels {[(t.kernel, it) for t, it in zip(stream, iters)]}, "
+        f"priorities {[t.priority for t in stream]}, arrivals over "
+        f"{OVERHEAD_SPAN_S} s (mean spacing "
+        f"{OVERHEAD_SPAN_S / OVERHEAD_TASKS * 1e3:.1f} ms); made with the "
+        f"plain images in {time.perf_counter() - t0:.3f} s")
+
+    def arm(n_regions: int, preemption: bool) -> dict:
+        shell = Shell(n_regions=n_regions)
+        try:
+            for kname in ("MedianBlur", "GaussianBlur"):
+                shell.engine.prewarm(kname, stream[0].args,
+                                     shell.regions[0].geometry)
+            sched = Scheduler(shell, SchedulerConfig(preemption=preemption))
+            tasks = [Task(kernel=t.kernel, args=t.args, priority=t.priority,
+                          arrival_time=t.arrival_time) for t in stream]
+            rep = sched.run(tasks, quiet=True)
+        finally:
+            shell.shutdown()
+        for t, it, w in zip(tasks, iters, want):
+            kind = "median" if t.kernel == "MedianBlur" else "gaussian"
+            check(kind, torch.from_numpy(result_image(t, it)),
+                  torch.from_numpy(w))
+        urgent = sorted(t.service_time for t in tasks if t.priority <= 1)
+        # the card's time a task: the serving window (first service to
+        # last completion) over the tasks; a task's upload and result
+        # copy run on its region's worker inside that window
+        span = (max(t.t_done for t in tasks)
+                - min(t.t_first_served for t in tasks))
+        return {"tput": rep["throughput_tps"], "wall_s": rep["wall_s"],
+                "preemptions": rep["preemptions"], "n_done": rep["n_done"],
+                "urgent_p50_ms": sched._percentile(urgent, 0.50) * 1e3,
+                "urgent_p99_ms": sched._percentile(urgent, 0.99) * 1e3,
+                "n_urgent": len(urgent),
+                "task_ms": span / len(tasks) * 1e3}
+
+    _reset_counts()
+    out = {}
+    for n_regions in (1, 2):
+        runs = {False: [], True: []}
+        rounds = []  # each round's own overhead: the spread is the noise
+        for rnd in range(OVERHEAD_ROUNDS):
+            this = {False: [], True: []}
+            for k, preemption in enumerate((False, True, True, False)):
+                r = arm(n_regions, preemption)
+                this[preemption].append(r["tput"])
+                runs[preemption].append(r)
+                if r["n_done"] != OVERHEAD_TASKS:
+                    raise AssertionError(f"[overhead] {r['n_done']} of "
+                                         f"{OVERHEAD_TASKS} tasks done")
+                if not preemption and r["preemptions"]:
+                    raise AssertionError("[overhead] preempted with "
+                                         "preemption off")
+                log(f"[overhead] {n_regions} region(s), round {rnd + 1}, "
+                    f"preemption {'on' if preemption else 'off'} (arm "
+                    f"{k + 1} of 4): {r['tput']:.4f} tasks/s over "
+                    f"{r['wall_s']:.3f} s, preemptions {r['preemptions']}, "
+                    f"urgent (priority <= 1, n={r['n_urgent']}) service p50 "
+                    f"{r['urgent_p50_ms']:.3f} ms, p99 "
+                    f"{r['urgent_p99_ms']:.3f} ms; {r['task_ms']:.3f} ms of "
+                    f"the serving window a task")
+                if n_regions == 1 and rnd == 0 and k == 0:
+                    spacing = OVERHEAD_SPAN_S / OVERHEAD_TASKS * 1e3
+                    busy = spacing < r["task_ms"]
+                    log(f"[overhead] one task's service on the card (first "
+                        f"arm: the one region's serving window over the "
+                        f"tasks, copies included) {r['task_ms']:.3f} ms "
+                        f"against a mean arrival spacing of {spacing:.1f} "
+                        f"ms: the card "
+                        f"{'stays busy' if busy else 'idles between tasks'}")
+            rounds.append((1.0 - np.mean(this[True]) / np.mean(this[False]))
+                          * 100.0)
+        tput = {p: float(np.mean([r["tput"] for r in runs[p]]))
+                for p in runs}
+        pct = (1.0 - tput[True] / tput[False]) * 100.0
+        out[n_regions] = {"overhead_pct": pct, "tput_off": tput[False],
+                          "tput_on": tput[True],
+                          "rounds_pct": [float(x) for x in rounds],
+                          "preemptions_on": [r["preemptions"]
+                                             for r in runs[True]],
+                          "runs": {str(p): runs[p] for p in runs}}
+        log(f"[overhead] {n_regions} region(s): preemption overhead "
+            f"{pct:.3f} % (1 - {tput[True]:.4f} / {tput[False]:.4f} tasks/s, "
+            f"mean of {2 * OVERHEAD_ROUNDS} arms each; by round "
+            f"{', '.join(f'{x:.3f}' for x in rounds)} %); the paper's FPGA "
+            f"figure {PAPER_OVERHEAD_PCT[n_regions]} %")
+    _require_counts("overhead", {
+        k: 8 * OVERHEAD_ROUNDS * v for k, v in _want_blocks(
+            (t.kernel, it) for t, it in zip(stream, iters)).items()})
+    return out
 
 
 def serving_traffic():
@@ -1132,8 +1507,7 @@ def main() -> int:
     from repro_torch.kernels import native
     from repro_torch.kernels.blur import kernel as K
     from repro_torch.kernels.blur import ref as R
-    from repro_torch.kernels.blur.tasks import (ROW_BLOCK, make_image,
-                                                result_image)
+    from repro_torch.kernels.blur.tasks import ROW_BLOCK, make_image
 
     # TF32 would change what conv2d computes; the yardstick stays f32
     torch.backends.cudnn.allow_tf32 = False
@@ -1191,13 +1565,11 @@ def main() -> int:
 
     # 4. main path ----------------------------------------------------------
     imgs = [make_image(rng, SIZE) for _ in range(3)]
-    tasks, urgent, rep, main_s, counts = serve(imgs, SLOWDOWN_S)
+    tasks, urgent, rep, main_s, (blocks, launches) = serve(imgs, SLOWDOWN_S)
     n_rb = SIZE // ROW_BLOCK
     budget = get_kernel("MedianBlur").default_budget
     want_blocks = {"median": 2 * BG_ITERS * n_rb,
                    "gaussian": URGENT_ITERS * n_rb}
-    blocks = {k: c[0] for k, c in counts.items()}
-    launches = {k: c[1] for k, c in counts.items()}
     log_serve("main", tasks, urgent, rep, main_s, SLOWDOWN_S)
     log(f"[main] row blocks {blocks} (expected exactly {want_blocks}); "
         f"launches {launches} (expected at least ceil(row blocks / "
@@ -1214,10 +1586,7 @@ def main() -> int:
     for t, im, iters, kind in ((tasks[0], imgs[0], BG_ITERS, "median"),
                                (tasks[1], imgs[1], BG_ITERS, "median"),
                                (urgent, imgs[2], URGENT_ITERS, "gaussian")):
-        got = torch.tensor(result_image(t, iters))
-        want = R.iterated_blur_ref(torch.tensor(im, device=dev), iters,
-                                   kind).cpu()
-        err = check(kind, got, want)
+        err = _check_result(t, im, iters, dev)
         log(f"[main] task #{t.tid} {kind} x{iters}: preempted "
             f"{t.n_preemptions}x on regions {t.region_history}, max_abs_err "
             f"{err:.3e}")
@@ -1341,6 +1710,16 @@ def main() -> int:
         f"copy {down_ms:.3f} ms ({mb / down_ms:.3f} GB/s); kernel device "
         f"time per 3-iteration task "
         f"{records[0]['ms'] * 3 * n_rb / RUN_BLOCKS:.3f} ms")
+
+    # 5a-5c. the elastic pool, the Controller, the preemption overhead ------
+    t0 = time.perf_counter()
+    pool_phase(rng, dev)
+    controller_phase(rng, dev)
+    overhead = overhead_phase(OVERHEAD_SEED, dev)
+    summary = {n: {k: v for k, v in o.items() if k != "runs"}
+               for n, o in overhead.items()}
+    log(f"[overhead] {json.dumps(summary)}")
+    log(f"[pool+controller+overhead] {time.perf_counter() - t0:.3f} s")
 
     records += attention_phases(dev, card)
     records += recurrent_phases(dev, card)

@@ -9,11 +9,13 @@
 
     repro_torch.Client(n_regions=2, device="cpu")        # plain kernels
     repro_torch.Client(serving={"lm": "attention"})      # paged-KV LM
+    repro_torch.Client(backend=Scheduler(shell, pool=RegionPool(shell)))
 
 ``submit(task) -> TaskHandle``, ``launch(kernel, hittiles, ...)`` and
-``stream(prompt) -> SequenceHandle`` bind to one shell's scheduler.
-Multi-shell clusters (``n_shells > 1``) and the elastic pool come with
-later slices of the port and raise ``NotImplementedError`` until then.
+``stream(prompt) -> SequenceHandle`` bind to one shell's scheduler, with or
+without an elastic pool behind it.  Multi-shell clusters (``n_shells > 1``
+or a cluster frontend as ``backend``) come with a later slice of the port
+and raise ``NotImplementedError`` until then.
 """
 from __future__ import annotations
 
@@ -28,33 +30,70 @@ from repro_torch.core.task import Task
 
 
 class Client:
-    """Submission facade over one Shell + Scheduler, both owned by the
-    Client: ``Shell(n_regions, ...)`` on ``device`` (``None`` = ``cuda:0``;
-    raises without CUDA) and a ``Scheduler`` whose ``run_forever`` loop
-    runs on a thread of its own.
+    """Submission facade over one Shell + Scheduler.
+
+    Exactly one backend is bound per Client:
+
+    - ``backend=None`` (default): builds ``Shell(n_regions, ...)`` on
+      ``device`` (``None`` = ``cuda:0``; raises without CUDA) and a
+      ``Scheduler`` whose ``run_forever`` loop runs on a thread of its
+      own; the Client owns both.
+    - ``backend=Shell``: wraps it in a ``Scheduler`` (the Client owns the
+      loop, not the shell).
+    - ``backend=Scheduler``: adopts it (a pool-backed one included); if
+      its loop is not serving, the Client starts (and owns) a
+      ``run_forever`` thread.
 
     ``serving`` (a ``ServingConfig``, or a kwargs dict for one — e.g.
     ``serving={"lm": "attention"}`` to stream from the paged-KV attention
     backend) configures the lazily-created token-serving engine behind
     ``stream()``; its LM lives on the shell's device."""
 
-    def __init__(self, *, n_regions: int = 2, n_shells: int = 1,
+    def __init__(self, backend=None, *, n_regions: int = 2,
+                 n_shells: int = 1,
                  scheduler_config: Optional[SchedulerConfig] = None,
                  device=None, serving=None, **shell_kwargs):
         if n_shells != 1:
             raise NotImplementedError(
                 "multi-shell clusters (n_shells > 1) are not ported yet")
+        self._own_shell = False
+        self._own_loop = False
+        self._loop_thread: Optional[threading.Thread] = None
         self._serving_cfg = serving
         self._engine = None
         self._engine_lock = threading.Lock()
-        devices = None if device is None else [device]
-        self.shell = Shell(n_regions=n_regions, devices=devices,
-                           **shell_kwargs)
-        try:
-            self.scheduler = Scheduler(self.shell, scheduler_config)
-        except BaseException:
-            self.shell.shutdown()  # a refused config leaks no workers
-            raise
+
+        if backend is None:
+            devices = None if device is None else [device]
+            self.shell = Shell(n_regions=n_regions, devices=devices,
+                               **shell_kwargs)
+            self._own_shell = True
+            try:
+                self.scheduler = Scheduler(self.shell, scheduler_config)
+            except BaseException:
+                self.shell.shutdown()  # a refused config leaks no workers
+                raise
+            self._start_loop()
+        elif isinstance(backend, Shell):
+            self.shell = backend
+            self.scheduler = Scheduler(backend, scheduler_config)
+            self._start_loop()
+        elif isinstance(backend, Scheduler):
+            self.scheduler = backend
+            self.shell = backend.shell
+            if not backend.serving:
+                self._start_loop()
+        elif hasattr(backend, "submit") and hasattr(backend, "shutdown"):
+            raise NotImplementedError(
+                "a cluster frontend as the backend (multi-shell clusters) "
+                "is not ported yet")
+        else:
+            raise TypeError(
+                f"backend must be a Shell, Scheduler, or None; got "
+                f"{type(backend).__name__}")
+
+    def _start_loop(self):
+        self._own_loop = True
         self._loop_thread = threading.Thread(
             target=self.scheduler.run_forever, name="client-scheduler",
             daemon=True)
@@ -135,8 +174,11 @@ class Client:
             engine = self._engine
         if engine is not None:
             engine.drain(timeout)
-        rep = self.scheduler.drain(timeout)
-        self.shell.shutdown()
+        rep = None
+        if self._own_loop:
+            rep = self.scheduler.drain(timeout)
+        if self._own_shell:
+            self.shell.shutdown()
         return rep if rep is not None else self.report()
 
     def shutdown(self, timeout: Optional[float] = None) -> Optional[dict]:
@@ -146,8 +188,11 @@ class Client:
             engine = self._engine
         if engine is not None:
             engine.shutdown(timeout)
-        rep = self.scheduler.shutdown(timeout)
-        self.shell.shutdown()
+        rep = None
+        if self._own_loop:
+            rep = self.scheduler.shutdown(timeout)
+        if self._own_shell:
+            self.shell.shutdown()
         return rep
 
     def __enter__(self) -> "Client":

@@ -92,11 +92,14 @@ class _HostDone:
 
 
 class RegionState(Enum):
-    """Region lifecycle.  ACTIVE regions accept dispatches; a DRAINING
-    region finishes (or is checkpoint-preempted off) its current work but
-    receives nothing new.  ``repair()`` revives a failed region back to
-    ACTIVE.  RETIRED (terminal) is entered by the elastic pool, which
-    comes with a later slice of the port."""
+    """Elastic-pool lifecycle.
+
+    ACTIVE regions accept dispatches; a DRAINING region finishes (or is
+    checkpoint-preempted off) its current work but receives nothing new; a
+    RETIRED region's stream has been synchronised, its worker shut down
+    and its devices returned to the floorplanner.  ``repair()`` revives a
+    failed region back to ACTIVE; RETIRED is terminal.
+    """
     ACTIVE = "active"
     DRAINING = "draining"
     RETIRED = "retired"
@@ -130,11 +133,12 @@ class Region:
         self.rid = rid
         self.engine = engine
         self.interrupts = interrupts
+        # the slice may start empty (the pool's placeholder for a carved
+        # slice) and is re-cut by replans; device and stream follow it
         self.devices = list(devices)
-        self.device = torch.device(self.devices[0])
-        # the region's own stream on the shared card; None on the CPU
-        self.stream = (torch.cuda.Stream(device=self.device)
-                       if self.device.type == "cuda" else None)
+        self._stream: Optional[torch.cuda.Stream] = None
+        if self.devices and self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(device=self.device)
         self.geometry = geometry
         self.chunk_budget = chunk_budget
         self.engine_mode = check_engine_mode(engine_mode)
@@ -159,6 +163,19 @@ class Region:
         self.on_chunk: Optional[Callable[["Region", Task], None]] = None
         self._thread: Optional[threading.Thread] = None
         self.start()
+
+    @property
+    def device(self) -> torch.device:
+        """The first device of the region's slice: where its buffers live."""
+        return torch.device(self.devices[0])
+
+    @property
+    def stream(self) -> Optional[torch.cuda.Stream]:
+        """The region's own stream on its card (a placeholder region makes
+        it once a replan has given it a slice); None on the CPU."""
+        if self._stream is None and self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(device=self.device)
+        return self._stream
 
     # ------------------------------------------------------------------
     def start(self):
@@ -201,10 +218,23 @@ class Region:
         self._failed.set()
 
     def begin_drain(self):
-        """Stop accepting dispatches; the current task still finishes or
-        is checkpoint-preempted off."""
+        """Elastic shrink step 1: stop accepting dispatches.  The caller
+        (``RegionPool``) preempts the current task and retires the region
+        once it is idle."""
         if self.state is RegionState.ACTIVE:
             self.state = RegionState.DRAINING
+
+    def retire(self):
+        """Elastic shrink step 2 (terminal): wait for everything issued on
+        the region's stream, then shut the worker down.  The caching
+        allocator hands a freed block back to its stream's pool at once,
+        so the stream must hold no queued launch by then.  The bank keeps
+        its commit: a task checkpoint-preempted off this region resumes
+        elsewhere through ``materialize()``."""
+        self.state = RegionState.RETIRED
+        if self._stream is not None:
+            self._stream.synchronize()
+        self.shutdown()
 
     def repair(self) -> list:
         """Bring the region back.  Its bank survives.  Returns the tasks of

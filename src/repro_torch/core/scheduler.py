@@ -10,14 +10,18 @@
   is a compatibility wrapper that replays arrivals through ``submit()``.
 - **Event loop** (this module): arrivals, dispatch, preemption plumbing,
   straggler mitigation (chunk-latency EWMA -> preempt & migrate), and
-  region failure/repair.  Dispatch consults placement feasibility
-  (``Task.footprint`` vs the region's device-slice width) through the
-  policy's ``pick_region``.
+  elastic region failure/repair.
+
+An optional ``RegionPool`` (``core/pool.py``) makes the region list itself
+elastic: the loop ticks the pool once per iteration, so autoscaler
+decisions, drain-retirements, and floorplan replans all happen on the loop
+thread.  Dispatch consults placement feasibility (``Task.footprint`` vs the
+region's device-slice width) through the policy's ``pick_region``.
 
 Not ported yet, each with its own later slice: the flight recorder and
 live metrics (``repro.obs``: the report's ``trace``/``telemetry`` sections
-read ``{"enabled": False}``), the elastic region pool, cross-shell
-handoffs, and scheduler checkpoints (``checkpoint_path`` raises).
+read ``{"enabled": False}``), cross-shell handoffs, and scheduler
+checkpoints (``checkpoint_path`` raises).
 
 Serve steps (paper):
   (1) find an available region;
@@ -128,16 +132,15 @@ class SchedulerConfig:
 class Scheduler:
     def __init__(self, shell: Shell, config: Optional[SchedulerConfig] = None,
                  policy: Optional[SchedulingPolicy] = None,
-                 pool=None):
-        if pool is not None:
-            raise NotImplementedError(
-                "the elastic region pool (core/pool.py) is not ported yet")
+                 pool: Optional[object] = None):
         if config is not None and not isinstance(config, SchedulerConfig):
             raise TypeError(
                 f"config must be a SchedulerConfig (or None), got "
                 f"{type(config).__name__}")
         self.shell = shell
         self.cfg = (config or SchedulerConfig()).validate()
+        # elastic region pool (core/pool.py); ticked from the event loop
+        self.pool = pool
         if policy is None:
             policy = make_policy(self.cfg.policy,
                                  n_priorities=self.cfg.n_priorities,
@@ -158,6 +161,15 @@ class Scheduler:
         # post-completion dispatch could stall a full WaitForInterrupt
         # timeout (0.5s) on an otherwise idle system.
         self._idle_hint = set()
+        # rid -> the task dispatched there whose TASK_DONE/TASK_PREEMPTED
+        # (or REGION_FAILED) the loop has not handled yet.  The worker
+        # goes idle just after raising that event, so a serve pass that
+        # trusted ``idle`` alone could refill the region before the event
+        # is handled; the late event would then hint it free again (or
+        # coalesce onto it), queueing a second task there that runs on
+        # whatever bitstream the first one loads.  The reference has this
+        # race; a region is dispatchable here only once it has settled.
+        self._unsettled: dict = {}
         # running count of deadline misses (report() recomputes from the
         # finished list; the autoscaler reads this O(1) counter every tick)
         self.deadline_misses_total = 0
@@ -242,6 +254,7 @@ class Scheduler:
             self._loop_done.clear()
         self.t0 = time.perf_counter()
         self._idle_hint.clear()
+        self._unsettled.clear()
         self._serving.set()   # t0 is valid: now() / deadline_s make sense
         crashed = True
         try:
@@ -341,6 +354,8 @@ class Scheduler:
                 raise err
 
             self._serve(quiet)
+            if self.pool is not None:
+                self.pool.tick(self)
             self._check_stragglers()
             self._maybe_repair()
 
@@ -384,16 +399,30 @@ class Scheduler:
         """Resolve the task's footprint (kernel default when unset) and
         reject at admission anything wider than any region that could ever
         exist — it would otherwise sit in a queue forever and hang
-        ``drain()``.  A static shell can never re-cut its floorplan, so
-        the ceiling is its widest region as built."""
+        ``drain()``.  With an elastic pool the ceiling is the whole grid
+        (the pool consolidates slices on demand, see ``RegionPool.tick``);
+        a static shell can never re-cut its floorplan, so the ceiling is
+        its widest region as built."""
         if task.footprint is None:
             try:
                 task.footprint = get_kernel(task.kernel).footprint
             except KeyError:
                 task.footprint = 1
-        ceiling = max((len(r.devices) for r in self.shell.regions),
-                      default=0)
-        what = f"widest region ({ceiling} devices, static floorplan)"
+        if self.pool is not None:
+            n_dev = len(self.shell.devices)
+            if self.shell.floorplanner.overlapped:
+                ceiling = n_dev  # time-shared slices span the whole grid
+            else:
+                # consolidation keeps min_regions disjoint regions alive,
+                # each needing >= 1 device, so the widest slice the pool
+                # can ever build is the grid minus (min_regions - 1)
+                ceiling = max(1, n_dev - (self.pool.min_regions - 1))
+            what = (f"widest achievable region ({ceiling} of {n_dev} "
+                    f"devices at min_regions={self.pool.min_regions})")
+        else:
+            ceiling = max((len(r.devices) for r in self.shell.regions),
+                          default=0)
+            what = f"widest region ({ceiling} devices, static floorplan)"
         if task.footprint <= ceiling:
             return True
         task.status = TaskStatus.FAILED
@@ -483,8 +512,11 @@ class Scheduler:
 
     # ------------------------------------------------------------------
     def _any_running(self) -> bool:
-        return any(not r.idle for r in self.shell.regions if r.alive) or bool(
-            self._preempt_pending)
+        # an unsettled dispatch counts: a region that failed under its task
+        # is neither alive nor busy, and the loop must not exit before the
+        # REGION_FAILED event requeues that task (the reference can)
+        return (any(not r.idle for r in self.shell.regions if r.alive)
+                or bool(self._preempt_pending) or bool(self._unsettled))
 
     def _handle(self, ev: Event, quiet=True):
         self.events_log.append((self.now(), ev.kind.value, ev.region_id,
@@ -498,6 +530,7 @@ class Scheduler:
                 # insta-preempt the next task launched there.
                 self._preempt_pending.discard(ev.region_id)
                 self.shell.region(ev.region_id).cancel_preempt()
+            self._settle(ev)
             if self.shell.region(ev.region_id).dispatchable:
                 self._idle_hint.add(ev.region_id)  # draining/retired
                 # regions never redispatch, so no hint to leak for them
@@ -515,6 +548,7 @@ class Scheduler:
             self._try_coalesce(self.shell.region(ev.region_id), quiet)
         elif ev.kind == EventKind.TASK_PREEMPTED:
             self._preempt_pending.discard(ev.region_id)
+            self._settle(ev)
             if self.shell.region(ev.region_id).dispatchable:
                 self._idle_hint.add(ev.region_id)
             self._enqueue(ev.task, requeue=True)  # paper: enqueue the
@@ -523,6 +557,9 @@ class Scheduler:
         elif ev.kind == EventKind.REGION_FAILED:
             region = self.shell.region(ev.region_id)
             self._preempt_pending.discard(ev.region_id)
+            # the worker is dead: whatever was dispatched there is
+            # requeued here or by the repair
+            self._unsettled.pop(ev.region_id, None)
             self._dead_since[ev.region_id] = self.now()
             task = ev.task
             if task is not None and task.status not in (TaskStatus.DONE,
@@ -542,6 +579,10 @@ class Scheduler:
                 print(f"[{self.now():7.3f}] REGION {ev.region_id} FAILED")
         # RECONFIG_DONE / HEARTBEAT: accounting only
 
+    def _settle(self, ev: Event):
+        if self._unsettled.get(ev.region_id) is ev.task:
+            del self._unsettled[ev.region_id]
+
     # ------------------------------------------------------------------
     def _serve(self, quiet=True):
         """Paper serve procedure, policy-mediated: dispatch while the
@@ -551,7 +592,8 @@ class Scheduler:
         while True:
             idle = [r for r in self.shell.regions
                     if r.dispatchable
-                    and (r.idle or r.rid in self._idle_hint)
+                    and ((r.idle and r.rid not in self._unsettled)
+                         or r.rid in self._idle_hint)
                     and r.rid not in self._preempt_pending]
             if not idle:
                 break
@@ -619,6 +661,7 @@ class Scheduler:
 
     def _dispatch(self, region: Region, task: Task, quiet=True):
         task.last_dispatched_rid = region.rid
+        self._unsettled[region.rid] = task
         key = (task.kernel, task.args.signature(), region.geometry)
         if self.cfg.full_reconfig_mode:
             if region.loaded != key:
@@ -687,6 +730,7 @@ class Scheduler:
                     # anything already pending or the same Task would be
                     # dispatched twice concurrently.
                     dropped = region.repair()
+                    self._unsettled.pop(rid, None)
                     if dropped:
                         pending = self.policy.pending_tasks()
                         for task in dropped:
@@ -790,17 +834,20 @@ class Scheduler:
             live_cancelled = sum(1 for h in self._handles.values()
                                  if h.cancelled())
 
-        # capacity accounting: region-seconds is capacity consumed over
-        # the run's wall window (static n-region shell = n * wall);
-        # utilization divides the busy time actually attributed to regions
-        # by that capacity
-        pool_stats = {
-            "elastic": False,
-            "n_regions": len(self.shell.regions),
-            "grows": 0, "shrinks": 0, "resizes": 0,
-            "resize_events": [],
-            "region_seconds": len(self.shell.regions) * wall,
-        }
+        # elastic-pool / capacity accounting: region-seconds is capacity
+        # consumed over the run's wall window (static n-region shell =
+        # n * wall); utilization divides the busy time actually attributed
+        # to regions by that capacity
+        if self.pool is not None:
+            pool_stats = self.pool.report(t0=self.t0, t1=self.t0 + wall)
+        else:
+            pool_stats = {
+                "elastic": False,
+                "n_regions": len(self.shell.regions),
+                "grows": 0, "shrinks": 0, "resizes": 0,
+                "resize_events": [],
+                "region_seconds": len(self.shell.regions) * wall,
+            }
         regions_ever = list(self.shell._by_rid.values())
         busy_total = sum(r.stats.busy_s for r in regions_ever)
         pool_stats["utilization"] = (

@@ -9,9 +9,18 @@ that wants the CPU passes ``devices=["cpu"]`` — there the kernels' plain
 PyTorch versions run.  Without CUDA and without that request the shell
 raises: it never drops to the CPU on its own.
 
+The initial region count is the shell build parameter, but the region
+list is dynamic: ``add_region``/``retire_region`` let the elastic pool
+(``core/pool.py``) grow and shrink it at runtime.  On the one card a grown
+region is a new CUDA stream; a retired one has its stream synchronised and
+its worker joined, and stays reachable through ``region(rid)`` so late
+interrupts and the resume of a task it gave up still find it.
+
 The shell also owns the reconfiguration plumbing: the ``ReconfigEngine``
 (LRU bitstream cache + single ICAP port) and the ``BitstreamPrefetcher``
-that generates bitstreams off the dispatch path.
+that generates bitstreams off the dispatch path.  Both are shared handles:
+regions added after construction reuse the same engine, cache, and
+prefetcher.
 """
 from __future__ import annotations
 
@@ -82,10 +91,12 @@ class Shell:
                                                    widths=region_widths):
             self.add_region(devices=devs)
 
-    # -- dynamic region list ----------------------------------------------
+    # -- dynamic region pool ----------------------------------------------
     def add_region(self, devices=None, width: int = 1) -> Region:
-        """Create and start a new region on a floorplanned device slice.
-        Region ids are monotonic and never reused."""
+        """Create and start a new region on a floorplanned device slice
+        (``devices=None`` asks the floorplanner for a ``width``-wide one).
+        Region ids are monotonic and never reused; use ``region(rid)`` for
+        lookups — list position is not the id once the pool has resized."""
         if devices is None:
             devices = self.floorplanner.allocate(width)
         rid = self._next_rid
@@ -98,6 +109,17 @@ class Shell:
         self.floorplanner.bind(rid, devices)
         self.regions.append(r)
         self._by_rid[rid] = r
+        return r
+
+    def retire_region(self, rid: int) -> Region:
+        """Shut a region down and return its devices to the floorplanner.
+        Callers must have drained it first (``RegionPool`` does the safe
+        checkpoint-preempt drain); the object stays reachable via
+        ``region(rid)`` so late interrupts can still resolve it."""
+        r = self._by_rid[rid]
+        r.retire()
+        self.regions = [x for x in self.regions if x.rid != rid]
+        self.floorplanner.release(rid)
         return r
 
     def region(self, rid: int) -> Region:
@@ -123,7 +145,9 @@ class Shell:
         self.region(rid).request_preempt()
 
     def shutdown(self):
-        """Stop every background thread this shell owns.  Idempotent."""
+        """Stop every background thread this shell owns: the prefetcher and
+        all region workers, including retired and failed regions, whose
+        join is a no-op.  Idempotent."""
         if self._shutdown:
             return
         self._shutdown = True

@@ -14,7 +14,7 @@ from repro_torch import Client  # noqa: E402
 from repro_torch.controller.kernels import get_kernel  # noqa: E402
 from repro_torch.core.interrupts import EventKind  # noqa: E402
 from repro_torch.core.reporting import SCHEMA as PORT_SCHEMA  # noqa: E402
-from repro_torch.core.scheduler import Scheduler, SchedulerConfig  # noqa: E402
+from repro_torch.core.scheduler import SchedulerConfig  # noqa: E402
 from repro_torch.core.shell import Shell  # noqa: E402
 from repro_torch.core.task import Task  # noqa: E402
 from repro_torch.kernels.blur.tasks import make_image, result_image  # noqa: E402
@@ -204,8 +204,19 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         Shell(n_regions=1)
 
 
+class _ClusterLike:
+    """Duck-typed like a cluster frontend: ``submit`` and ``shutdown``."""
+
+    def submit(self, task):
+        raise AssertionError("never reached")
+
+    def shutdown(self):
+        pass
+
+
 @pytest.mark.parametrize("kwargs,match", [
     ({"n_shells": 2}, "multi-shell"),
+    ({"backend": _ClusterLike()}, "cluster frontend"),
     ({"engine": "megakernel"}, "megakernel"),
     ({"tracer": object()}, "not ported"),
     ({"scheduler_config": SchedulerConfig(checkpoint_path="x")},
@@ -216,16 +227,25 @@ def test_later_slices_raise(kwargs, match):
         Client(n_regions=1, device="cpu", **kwargs)
 
 
-def test_elastic_pool_is_not_ported_yet():
+def test_client_wraps_a_shell_backend(img):
+    """``Client(backend=Shell)`` runs its own loop over a shell it does not
+    own; anything else that is not a Shell or Scheduler is refused."""
     shell = Shell(n_regions=1, devices=["cpu"])
     try:
-        with pytest.raises(NotImplementedError, match="pool"):
-            Scheduler(shell, pool=object())
+        with Client(backend=shell) as client:
+            assert client.scheduler.shell is shell
+            t = client.submit(_task("MedianBlur", img, 1)).task
+            client.drain(TIMEOUT)
+        np.testing.assert_array_equal(
+            t.result[1], np.asarray(iterated_blur_ref(img, 1, "median")))
+        assert all(r.alive for r in shell.regions)  # the shell is not its
     finally:
         shell.shutdown()
+    with pytest.raises(TypeError, match="backend"):
+        Client(backend=object())
 
 
-def test_stream_is_not_ported_yet():
+def test_stream_serves_the_surrogate_oracle():
     """Token serving came with the serving slice: ``stream`` now returns a
     handle whose tokens are the surrogate oracle's, and ``serving_report``
     reads ``None`` until the engine is first used."""

@@ -1,6 +1,7 @@
 """The port on the card: the hand-written CUDA kernels (blur, flash
 attention, decode attention, RG-LRU scan, RWKV-6) against their plain
-PyTorch versions, the Client's preempt/resume path through CUDA streams,
+PyTorch versions, the Client's preempt/resume path through CUDA streams
+(the elastic pool's grow and drain among them),
 token serving on the attention LM, and ``serve lm`` on the recurrent
 models.  A CUDA kernel has no CPU mode, so every test here carries the
 ``cuda`` marker and skips without a card.  This file imports nothing of
@@ -8,6 +9,8 @@ the JAX package, so it runs where JAX is absent:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import time
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -190,6 +193,75 @@ def test_cuda_client_preempt_resume_is_bit_identical(cuda_device):
     for t in (same, cross):
         for got, exp in zip(t.result, base.result):
             np.testing.assert_array_equal(got, exp)
+
+
+def test_cuda_pool_drain_resumes_on_a_grown_stream(cuda_device):
+    """The elastic pool on the card: grow a second region (a second CUDA
+    stream), drain the one running the task at its first chunk boundary;
+    the task resumes on the grown stream from the retired region's bank
+    and equals an unpreempted run bitwise, every row block once."""
+    from repro_torch.core.pool import RegionPool
+    from repro_torch.core.region import RegionState
+    from repro_torch.core.scheduler import Scheduler
+    from repro_torch.core.shell import Shell
+
+    img = make_image(np.random.default_rng(3), 200)  # pads to 256: 8 blocks
+    base, _, _ = _run(img)
+    shell = Shell(n_regions=1, chunk_budget=2)
+    pool = RegionPool(shell, min_regions=1, max_regions=2)
+    client = Client(backend=Scheduler(shell, pool=pool))
+    grown = []
+
+    def drain(region, task):
+        pool.request_grow()
+        deadline = time.perf_counter() + TIMEOUT
+        while len(shell.regions) < 2 and time.perf_counter() < deadline:
+            time.sleep(0.001)
+        grown.append(shell.regions[-1])
+        pool.request_shrink(region.rid)
+        assert region._preempt.wait(TIMEOUT), "the drain never landed"
+
+    try:
+        shell.regions[0].on_chunk = _once(drain)
+        kd = get_kernel("MedianBlur")
+        task = Task(kernel="MedianBlur", args=kd.bundle(
+            img.copy(), np.zeros_like(img), H=200, W=200, iters=3))
+        before = (K.ROW_BLOCKS.total(), K.LAUNCHES.total())
+        client.submit(task).result(timeout=TIMEOUT)
+        counts = (K.ROW_BLOCKS.total() - before[0],
+                  K.LAUNCHES.total() - before[1])
+        rep = client.drain(TIMEOUT)
+    finally:
+        client.shutdown()
+        shell.shutdown()
+    first = shell.region(0)
+    assert grown and grown[0].stream is not first.stream
+    assert grown[0].device == first.device == cuda_device
+    assert task.n_preemptions == 1 and task.region_history == [0, 1]
+    assert first.state is RegionState.RETIRED and first.stream.query()
+    assert (rep["pool"]["grows"], rep["pool"]["shrinks"]) == (1, 1)
+    _check_counts(counts, rep)
+    for got, exp in zip(task.result, base.result):
+        np.testing.assert_array_equal(got, exp)
+
+
+def test_cuda_retire_waits_for_the_regions_stream(cuda_device):
+    """Retiring a region synchronises its stream first: work still queued
+    there (a spin) has finished when ``retire`` returns."""
+    from repro_torch.core.shell import Shell
+
+    shell = Shell(n_regions=2)
+    try:
+        region = shell.regions[1]
+        with torch.cuda.stream(region.stream):
+            torch.cuda._sleep(200_000_000)  # ~0.1 s of spinning
+        assert not region.stream.query()
+        shell.retire_region(region.rid)
+        assert region.stream.query() and not region.alive
+        assert shell.region(region.rid) is region
+        assert [r.rid for r in shell.regions] == [0]
+    finally:
+        shell.shutdown()
 
 
 # -- attention kernels ---------------------------------------------------

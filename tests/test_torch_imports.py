@@ -1,5 +1,6 @@
-"""The port stands alone: importing every ``repro_torch`` module (and
-``chip_smoke.py``) brings in neither ``jax`` nor any ``repro.`` module."""
+"""The port stands alone: importing every ``repro_torch`` module (among
+them ``core.pool`` and ``controller.controller``) and ``chip_smoke.py``
+brings in neither ``jax`` nor any ``repro.`` module."""
 import os
 import subprocess
 import sys
@@ -16,8 +17,13 @@ import importlib, pkgutil, sys
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
+# the elastic pool and the deprecated Controller, by name: a module the
+# walk missed would pass unchecked
+for name in ("repro_torch.core.pool", "repro_torch.controller.controller"):
+    assert name in names, name
 for name in names:
     importlib.import_module(name)
+from repro_torch.controller import Controller  # noqa: F401  (lazy export)
 sys.path.insert(0, sys.argv[1])
 import chip_smoke  # noqa: F401  (import only: main() runs under __main__)
 bad = sorted(m for m in sys.modules
