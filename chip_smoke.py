@@ -61,6 +61,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    tput(off) over all arms and by round (the rounds' spread is the
    noise), beside the paper's FPGA 1.66 % (1 region) and 4.04 % (2
    regions);
+5d. flight recorder (``repro_torch.obs``): the main path's workload (4)
+   without the injected slowdown, with a ``Tracer``, a ``MetricsRegistry``
+   and a sampling ``TelemetryMonitor`` threaded through ``Client``.  The
+   trace must hold submit, queue, dispatch, reconfig, icap, run, chunk,
+   preempt_request, preempt_honored and done; one chunk event per retired
+   chunk; nothing dropped; 3 tasks and at least one preemption response in
+   ``report()["trace"]``; the registry's ``preemptions_total`` equal to the
+   report's; every image equal to the plain version's, row blocks exact;
+   and its Chrome trace, written to a temporary file, must pass
+   ``tools/trace_report.py``.  Prints the trace's per-region occupancy,
+   the median wall time and host time per chunk of 3 untraced and 3
+   traced runs, alternated, the emit cost of the tracer, and the card's
+   busy share over the same workload under ``torch.profiler`` (the union
+   of its kernel and copy intervals from the first submission to the last
+   result);
 6. flash check: the flash-attention kernel against its plain version at the
    serving prefill shape (q [4, 32, 16, 128], k/v [4, 8, 128, 128] strided
    as the prefill passes them), q_offset 0 / 64 / 112, then at the edges of
@@ -87,9 +102,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``attention_oracle_stream`` replayed on the card with the LM's weights,
    at least one round must have been preempted, and the launch counters,
    zeroed just before, must read 8 flash launches per prefill task and 8
-   decode launches per decode round.  The same traffic then runs twice
-   more, warm and under ``torch.profiler`` (device time by kernel over the
-   serving window), and must stream the same tokens;
+   decode launches per decode round.  The same traffic then runs three
+   times more, warm, under ``torch.profiler`` (device time by kernel over
+   the serving window) and with a ``Tracer`` and a ``MetricsRegistry``
+   (the tokens counter must equal the tokens streamed, the TTFT histogram
+   count the sequences, the ``decode_round`` spans the engine's rounds),
+   and must stream the same tokens;
 9. attention times at those shapes: device time (``torch.profiler``, else
    queued behind a spin kernel) and CUDA-event time per launch for each
    kernel, its plain version and one ``scaled_dot_product_attention`` call
@@ -131,6 +149,13 @@ The last three lines of standard output are the kernel JSON record, the
 card line, and ``{"ok": true, "device": {...}}``.  The script imports
 nothing of the JAX package.  Without CUDA it exits non-zero and prints no
 result.
+
+``python3 chip_smoke.py --ab OTHER_TREE`` times the main path's workload
+(4, without the injected slowdown, untraced) in OTHER_TREE (an unpacked
+``git archive`` of another commit, e.g. the parent) and in this tree, one
+process each, in the order other, this, this, other, ``AB_RUNS`` runs
+after a warm-up in each: host time per chunk, urgent service and wall
+time, then each tree's median and range.
 """
 from __future__ import annotations
 
@@ -177,6 +202,12 @@ OVERHEAD_TASKS = 12
 OVERHEAD_SPAN_S = 0.6
 OVERHEAD_ROUNDS = 2   # off, on, on, off, twice at each region count
 PAPER_OVERHEAD_PCT = {1: 1.66, 2: 4.04}   # FPGA results (PAPER.md §6.3)
+MONITOR_INTERVAL_S = 0.05  # the traced runs' telemetry sampling period
+TRACE_ROUNDS = 3           # untraced, traced, alternated, 3 times each
+TRACE_KINDS = ("submit", "queue", "dispatch", "reconfig", "icap", "run",
+               "chunk", "preempt_request", "preempt_honored", "done")
+EMITS = 50_000             # emits timed per thread
+AB_RUNS = 5                # timed main-path runs per arm of --ab
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 # the column-sort median: 4 sorted vertical triples (6 min/max each) shared
@@ -344,13 +375,24 @@ def check(kind: str, got, want) -> float:
     return err
 
 
-def serve(imgs, slowdown_s: float):
+def serve(imgs, slowdown_s: float, tracer=None, metrics=None,
+          window: Optional[str] = None):
     """The main path: ``repro_torch.Client(n_regions=2)`` on cuda:0, two
     priority-4 MedianBlur tasks, then — once both have retired a chunk — a
     priority-0 GaussianBlur.  The launch and row-block counters are zeroed
-    just before and read just after.  Returns (background tasks, urgent
-    task, report, wall seconds, ({body: row blocks}, {body: launches}))."""
+    just before and read just after.  With ``metrics``, a
+    ``TelemetryMonitor`` attached to the scheduler samples every
+    ``MONITOR_INTERVAL_S`` while the tasks run.  With ``window``, the span
+    from the first submission to the last result is a ``torch.profiler``
+    range of that name.  Returns (background tasks,
+    urgent task, report, wall seconds, ({body: row blocks}, {body:
+    launches}))."""
+    import contextlib
+
+    from torch.profiler import record_function
+
     import repro_torch
+    from repro_torch.obs import TelemetryMonitor
 
     tasks = [_blur_task("MedianBlur", imgs[i], BG_ITERS, 4) for i in (0, 1)]
     urgent = _blur_task("GaussianBlur", imgs[2], URGENT_ITERS, 0)
@@ -363,23 +405,37 @@ def serve(imgs, slowdown_s: float):
             if all(b.tid in started for b in tasks):
                 both_started.set()
 
-    client = repro_torch.Client(n_regions=2)
+    client = repro_torch.Client(n_regions=2, tracer=tracer, metrics=metrics)
+    monitor = None
     try:
         for r in client.shell.regions:
             r.slowdown_s = slowdown_s
             r.on_chunk = on_chunk
+        if metrics is not None:
+            monitor = TelemetryMonitor(
+                metrics, interval_s=MONITOR_INTERVAL_S).attach(
+                    scheduler=client.scheduler)
+            monitor.start()
         _reset_counts()
-        t0 = time.perf_counter()
-        handles = [client.submit(t) for t in tasks]
-        if not both_started.wait(TIMEOUT_S):
-            raise AssertionError("background tasks never retired a chunk")
-        handles.append(client.submit(urgent))
-        for h in handles:
-            h.result(timeout=TIMEOUT_S)
-        wall_s = time.perf_counter() - t0
+        with (record_function(window) if window is not None
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            handles = [client.submit(t) for t in tasks]
+            if not both_started.wait(TIMEOUT_S):
+                raise AssertionError("background tasks never retired a "
+                                     "chunk")
+            handles.append(client.submit(urgent))
+            for h in handles:
+                h.result(timeout=TIMEOUT_S)
+            wall_s = time.perf_counter() - t0
         counts = _counts()
+        if monitor is not None:
+            monitor.stop()
+            monitor.sample()
         rep = client.drain(TIMEOUT_S)
     finally:
+        if monitor is not None:
+            monitor.stop()
         client.shutdown()
     return tasks, urgent, rep, wall_s, counts
 
@@ -741,6 +797,185 @@ def overhead_phase(rng_seed: int, dev) -> dict:
     return out
 
 
+def _busy_share(prof_json: str, window: str) -> dict:
+    """The card's busy share in a ``torch.profiler`` Chrome trace: the
+    union of its kernel, copy and memset intervals inside the host range
+    annotated ``window``, over that range."""
+    with open(prof_json) as f:
+        events = json.load(f)["traceEvents"]
+    span = next(e for e in events
+                if e.get("name") == window
+                and e.get("cat") == "user_annotation")
+    lo, hi = span["ts"], span["ts"] + span["dur"]
+    found = {"kernel": [], "gpu_memcpy": [], "gpu_memset": []}
+    for e in events:
+        if e.get("cat") in found and "dur" in e:
+            a, b = max(e["ts"], lo), min(e["ts"] + e["dur"], hi)
+            if b > a:
+                found[e["cat"]].append((a, b))
+    busy, end = 0.0, lo
+    for a, b in sorted(x for xs in found.values() for x in xs):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"window_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / (hi - lo),
+            **{f"{k}_n": len(v) for k, v in found.items()},
+            **{f"{k}_ms": sum(b - a for a, b in v) / 1e3
+               for k, v in found.items()}}
+
+
+def _emit_cost_us(n_threads: int) -> float:
+    """Wall microseconds per ``Tracer.emit`` with ``n_threads`` threads
+    emitting into one tracer at once (all threads' emits together: the
+    lock's and the interpreter's contention)."""
+    from repro_torch.obs import Tracer
+
+    tr = Tracer()
+    go = threading.Barrier(n_threads + 1)
+
+    def emit():
+        go.wait()
+        for i in range(EMITS):
+            tr.emit("chunk", ("region", 0), tid=i, t=0.0, dur=1e-3)
+
+    threads = [threading.Thread(target=emit) for _ in range(n_threads)]
+    for t in threads:
+        t.start()
+    go.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    return (time.perf_counter() - t0) / (n_threads * EMITS) * 1e6
+
+
+def trace_phase(imgs, dev) -> dict:
+    """5d. The main path's workload (4) without the injected slowdown under
+    the flight recorder and live telemetry, checked; then traced against
+    untraced runs, alternated, the tracer's emit cost, and the same
+    workload under ``torch.profiler`` for the card's busy share.  Returns
+    the numbers it printed."""
+    import statistics
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import MetricsRegistry, Tracer, export_chrome_trace
+
+    tracer, reg = Tracer(), MetricsRegistry()
+    tasks, urgent, rep, wall_s, (blocks, launches) = serve(
+        imgs, 0.0, tracer=tracer, metrics=reg)
+    want = _want_blocks([("MedianBlur", BG_ITERS), ("MedianBlur", BG_ITERS),
+                         ("GaussianBlur", URGENT_ITERS)])
+    log(f"[trace] row blocks {blocks} (expected exactly {want}); launches "
+        f"{launches}")
+    if blocks != want or min(launches.values()) < 1:
+        raise AssertionError(f"[trace] row blocks {blocks} != {want} or a "
+                             f"kernel never launched ({launches})")
+    for t, im, iters in ((tasks[0], imgs[0], BG_ITERS),
+                         (tasks[1], imgs[1], BG_ITERS),
+                         (urgent, imgs[2], URGENT_ITERS)):
+        _check_result(t, im, iters, dev)
+    evs = tracer.events()
+    kinds = {}
+    for e in evs:
+        kinds[e.kind] = kinds.get(e.kind, 0) + 1
+    t = rep["trace"]
+    preempts = sum(inst.value for kind, name, _l, inst in reg.series()
+                   if name == "preemptions_total")
+    log(f"[trace] {wall_s * 1e3:.3f} ms wall; {tracer.n_emitted} events "
+        f"({tracer.n_emitted / rep['chunks']:.3f} a chunk over "
+        f"{rep['chunks']} chunks), dropped {tracer.dropped}; kinds {kinds}")
+    log(f"[trace] per_task n_tasks {t['per_task']['n_tasks']}; "
+        f"preempt_response {t['preempt_response']}; registry "
+        f"preemptions_total {preempts:g}, report preemptions "
+        f"{rep['preemptions']}; telemetry samples "
+        f"{rep['telemetry']['samples']}, series "
+        f"{rep['telemetry']['n_series']}, alerts {rep['telemetry']['alerts']}")
+    missing = [k for k in TRACE_KINDS if k not in kinds]
+    if (missing or kinds["chunk"] != rep["chunks"] or tracer.dropped
+            or t["per_task"]["n_tasks"] != 3
+            or t["preempt_response"]["n"] < 1
+            or preempts != rep["preemptions"]):
+        raise AssertionError(
+            f"[trace] missing kinds {missing}, chunk events "
+            f"{kinds.get('chunk')} against {rep['chunks']} chunks, dropped "
+            f"{tracer.dropped}, tasks {t['per_task']['n_tasks']}, preempt "
+            f"responses {t['preempt_response']['n']}, preemptions_total "
+            f"{preempts} against {rep['preemptions']}")
+    window_s = t["window_s"]
+    for rid, r in sorted(t["regions"].items()):
+        log(f"[trace] region {rid}: occupancy {r['occupancy']:.4f} (busy "
+            f"{r['busy_s'] * 1e3:.3f} ms of the {window_s * 1e3:.3f} ms "
+            f"window), idle gaps {r['idle_gaps']}")
+    phases = {p: round(v["mean"], 6)
+              for p, v in t["per_task"]["phases"].items()}
+    log(f"[trace] phases (per task, mean s): {phases}; icap {t['icap']}, "
+        f"compile {t['compile']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        export_chrome_trace(tracer, path=str(path))
+        out = subprocess.run(
+            [sys.executable, str(ROOT / "tools" / "trace_report.py"),
+             str(path)], capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        raise AssertionError(f"[trace] tools/trace_report.py exit "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    log(f"[trace] tools/trace_report.py: exit 0, "
+        f"{len(out.stdout.splitlines())} lines; "
+        + " | ".join(ln.strip() for ln in out.stdout.splitlines()
+                     if "preempt" in ln or "window" in ln))
+
+    # the tracer's enabled cost, before anything else has run in between
+    arms = {False: [], True: []}
+    for _ in range(TRACE_ROUNDS):
+        for traced in (False, True):
+            tr, rg = (Tracer(), MetricsRegistry()) if traced else (None, None)
+            a_tasks, a_urgent, a_rep, a_wall, _ = serve(imgs, 0.0, tracer=tr,
+                                                        metrics=rg)
+            host_ms = (sum(x.run_s for x in (*a_tasks, a_urgent))
+                       / a_rep["chunks"] * 1e3)
+            arms[traced].append((a_wall * 1e3, host_ms,
+                                 a_urgent.service_time * 1e3))
+            log(f"[trace] {'traced' if traced else 'untraced'} run: wall "
+                f"{a_wall * 1e3:.3f} ms, {host_ms:.4f} ms host per chunk "
+                f"({a_rep['chunks']} chunks), urgent service "
+                f"{a_urgent.service_time * 1e3:.3f} ms, preemptions "
+                f"{a_rep['preemptions']}")
+    med = {k: [statistics.median(x[i] for x in v) for i in range(3)]
+           for k, v in arms.items()}
+    log(f"[trace] medians of {TRACE_ROUNDS}, untraced / traced: wall "
+        f"{med[False][0]:.3f} / {med[True][0]:.3f} ms, host per chunk "
+        f"{med[False][1]:.4f} / {med[True][1]:.4f} ms, urgent service "
+        f"{med[False][2]:.3f} / {med[True][2]:.3f} ms")
+
+    emit_us = {n: _emit_cost_us(n) for n in (1, 4)}
+    log(f"[trace] Tracer.emit: {emit_us[1]:.4f} us per emit on one thread, "
+        f"{emit_us[4]:.4f} us of wall per emit with 4 threads emitting at "
+        f"once ({EMITS} emits each)")
+
+    # the card's busy share over the same (untraced) workload
+    with tempfile.TemporaryDirectory() as tmp:
+        prof_json = str(Path(tmp) / "profile.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, _, p_rep, p_wall, _ = serve(imgs, 0.0, window="trace_window")
+        prof.export_chrome_trace(prof_json)
+        share = _busy_share(prof_json, "trace_window")
+    log(f"[trace] torch.profiler over the same workload, untraced, first "
+        f"submission to last result ({p_wall * 1e3:.3f} ms wall, "
+        f"{p_rep['chunks']} chunks): card busy "
+        f"{share['busy_ms']:.3f} ms of the {share['window_ms']:.3f} ms "
+        f"window, busy share {share['busy_share']:.4f}; kernels "
+        f"{share['kernel_n']} ({share['kernel_ms']:.3f} ms), copies "
+        f"{share['gpu_memcpy_n']} ({share['gpu_memcpy_ms']:.3f} ms), memsets "
+        f"{share['gpu_memset_n']} ({share['gpu_memset_ms']:.3f} ms)")
+    return {"occupancy": {rid: r["occupancy"]
+                          for rid, r in t["regions"].items()},
+            "busy_share": share["busy_share"], "emit_us": emit_us,
+            "medians": {str(k): v for k, v in med.items()}}
+
+
 def serving_traffic():
     """16 sequences from seed 0: prompts of 8-96 tokens, 8-32 new tokens,
     with prompt + new - 1 <= max_ctx (every sequence fits its pages)."""
@@ -757,7 +992,7 @@ def serving_traffic():
     return seqs
 
 
-def serve_attention(traffic, trace: bool = False):
+def serve_attention(traffic, trace: bool = False, tracer=None, metrics=None):
     """The main path of token serving: ``Client.stream`` on cuda:0 through
     both attention kernels, with every 3rd decode round preempted at its
     2nd chunk.  Launch counters are zeroed just before the sequences are
@@ -765,7 +1000,8 @@ def serve_attention(traffic, trace: bool = False):
     the streams, the serving and scheduler reports, the launches, the LM's
     weights, the seconds to build the weights on the host and to upload
     them, the peak device memory in GB, and with ``trace`` the device time
-    by kernel name from ``torch.profiler`` over the serving window."""
+    by kernel name from ``torch.profiler`` over the serving window.
+    ``tracer`` and ``metrics`` (``repro_torch.obs``) go to the Client."""
     import contextlib
 
     import torch
@@ -804,7 +1040,8 @@ def serve_attention(traffic, trace: bool = False):
 
     torch.cuda.reset_peak_memory_stats()
     client = repro_torch.Client(n_regions=2, chunk_budget=SERVE_CHUNK_BUDGET,
-                                serving=SERVING)
+                                serving=SERVING, tracer=tracer,
+                                metrics=metrics)
     try:
         for r in client.shell.regions:
             r.on_chunk = on_chunk
@@ -858,6 +1095,35 @@ def log_serving(tag: str, run: dict, want_launches=None):
         f"{[r['kernel_mode'] for r in rep['reconfig']['regions'].values()]}")
 
 
+def check_serving_trace(run: dict, tracer, reg):
+    """The traced, metered serving pass: the tokens counter equals the
+    tokens streamed, the TTFT histogram counts one per sequence, and the
+    ``decode_round`` spans number the engine's rounds."""
+    srep = run["serving"]
+    n_tokens = sum(len(s) for s in run["streams"])
+    tokens = sum(inst.value for kind, name, _l, inst in reg.series()
+                 if name == "serving_tokens_total")
+    ttft = sum(inst.n for kind, name, _l, inst in reg.series()
+               if name == "serving_ttft_seconds")
+    evs = tracer.events()
+    rounds = sum(e.kind == "decode_round" for e in evs)
+    t = srep["trace"]
+    log(f"[serve, flight recorder] serving_tokens_total {tokens:g} (tokens "
+        f"streamed {n_tokens}), serving_ttft_seconds count {ttft} "
+        f"({N_SEQS} sequences), decode_round spans {rounds} (engine rounds "
+        f"{srep['decode_rounds']}); {tracer.n_emitted} events, dropped "
+        f"{tracer.dropped}; per_task n_tasks {t['per_task']['n_tasks']}, "
+        f"preempt_response {t['preempt_response']}; region occupancy "
+        f"{ {k: round(v['occupancy'], 4) for k, v in t['regions'].items()} }")
+    if (tokens != n_tokens or ttft != N_SEQS
+            or rounds != srep["decode_rounds"] or tracer.dropped
+            or not t["enabled"] or not srep["telemetry"]["enabled"]):
+        raise AssertionError(
+            f"[serve, flight recorder] tokens {tokens} / {n_tokens}, ttft "
+            f"{ttft} / {N_SEQS}, decode_round spans {rounds} / "
+            f"{srep['decode_rounds']}, dropped {tracer.dropped}")
+
+
 def attention_phases(dev, card: str) -> list:
     """Phases 6-9; returns the two kernel records."""
     import numpy as np
@@ -868,6 +1134,7 @@ def attention_phases(dev, card: str) -> list:
     from repro_torch.kernels.decode_attention import ref as DR
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.obs import MetricsRegistry, Tracer
     from repro_torch.serving.attention import (AttentionParams,
                                                attention_oracle_stream)
 
@@ -1049,9 +1316,14 @@ def attention_phases(dev, card: str) -> list:
     for key, ms in sorted(traced["by_kernel"].items(),
                           key=lambda kv: -kv[1])[:10]:
         log(f"[serve, traced]   {ms:10.3f} ms  {key[:110]}")
-    if warm["streams"] != streams or traced["streams"] != streams:
+    tracer, reg = Tracer(), MetricsRegistry()
+    observed = serve_attention(traffic, tracer=tracer, metrics=reg)
+    log_serving("serve, flight recorder", observed)
+    if (warm["streams"] != streams or traced["streams"] != streams
+            or observed["streams"] != streams):
         raise AssertionError("a later pass streamed other tokens")
-    del warm, traced
+    check_serving_trace(observed, tracer, reg)
+    del warm, traced, observed
 
     # 9. times at the serving shapes
     records = []
@@ -1720,6 +1992,10 @@ def main() -> int:
                for n, o in overhead.items()}
     log(f"[overhead] {json.dumps(summary)}")
     log(f"[pool+controller+overhead] {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    traced = trace_phase(imgs, dev)
+    log(f"[trace] {json.dumps(traced)}")
+    log(f"[trace] {time.perf_counter() - t0:.3f} s")
 
     records += attention_phases(dev, card)
     records += recurrent_phases(dev, card)
@@ -1732,5 +2008,71 @@ def main() -> int:
     return 0
 
 
+_AB_WORKER = r"""
+import json, sys
+tree, n_runs = sys.argv[1], int(sys.argv[2])
+sys.path[:0] = [tree, tree + "/src"]
+import numpy as np
+import chip_smoke as cs
+from repro_torch.kernels import native
+from repro_torch.kernels.blur.tasks import make_image
+assert cs.__file__.startswith(tree), cs.__file__
+native.load_libraries(("blur",))
+rng = np.random.default_rng(0)
+imgs = [make_image(rng, cs.SIZE) for _ in range(3)]
+runs = []
+for i in range(n_runs + 1):             # the first run warms up
+    tasks, urgent, rep, wall_s, _ = cs.serve(imgs, 0.0)
+    if i:
+        runs.append({
+            "wall_ms": wall_s * 1e3,
+            "host_ms_per_chunk": sum(t.run_s for t in (*tasks, urgent))
+            / rep["chunks"] * 1e3,
+            "urgent_service_ms": urgent.service_time * 1e3,
+            "chunks": rep["chunks"], "preemptions": rep["preemptions"]})
+print("AB " + json.dumps(runs))
+"""
+
+
+def ab_main(other: str) -> int:
+    """``--ab OTHER_TREE``: the main path's untraced workload in another
+    tree and in this one, one process each, other, this, this, other."""
+    import os
+    import statistics
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs on an NVIDIA GPU", file=sys.stderr)
+        return 2
+    trees = {"other": str(Path(other).resolve()), "this": str(ROOT)}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    log(f"[ab] {card_line()}; other = {trees['other']}, this = "
+        f"{trees['this']}; {AB_RUNS} runs an arm after a warm-up")
+    runs = {"other": [], "this": []}
+    for arm in ("other", "this", "this", "other"):
+        out = subprocess.run(
+            [sys.executable, "-c", _AB_WORKER, trees[arm], str(AB_RUNS)],
+            capture_output=True, text=True, env=env, cwd=trees[arm],
+            timeout=TIMEOUT_S * 2)
+        if out.returncode != 0:
+            raise AssertionError(f"[ab] {arm}: exit {out.returncode}: "
+                                 f"{out.stderr[-3000:]}")
+        got = json.loads(next(ln for ln in out.stdout.splitlines()
+                              if ln.startswith("AB "))[3:])
+        runs[arm] += got
+        for r in got:
+            log(f"[ab] {arm}: {json.dumps(r)}")
+    for arm, rs in runs.items():
+        for key in ("host_ms_per_chunk", "urgent_service_ms", "wall_ms"):
+            xs = [r[key] for r in rs]
+            log(f"[ab] {arm} {key}: median {statistics.median(xs):.4f}, "
+                f"range {min(xs):.4f}-{max(xs):.4f} over {len(xs)} runs")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ab"]:
+        sys.exit(ab_main(sys.argv[2]))
     sys.exit(main())

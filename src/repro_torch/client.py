@@ -10,6 +10,7 @@
     repro_torch.Client(n_regions=2, device="cpu")        # plain kernels
     repro_torch.Client(serving={"lm": "attention"})      # paged-KV LM
     repro_torch.Client(backend=Scheduler(shell, pool=RegionPool(shell)))
+    repro_torch.Client(tracer=Tracer(), metrics=MetricsRegistry())
 
 ``submit(task) -> TaskHandle``, ``launch(kernel, hittiles, ...)`` and
 ``stream(prompt) -> SequenceHandle`` bind to one shell's scheduler, with or
@@ -47,7 +48,11 @@ class Client:
     ``serving`` (a ``ServingConfig``, or a kwargs dict for one — e.g.
     ``serving={"lm": "attention"}`` to stream from the paged-KV attention
     backend) configures the lazily-created token-serving engine behind
-    ``stream()``; its LM lives on the shell's device."""
+    ``stream()``; its LM lives on the shell's device.
+
+    ``tracer=`` and ``metrics=`` (``repro_torch.obs``) pass through
+    ``shell_kwargs`` to the ``Shell``; the scheduler and the serving engine
+    adopt them from there."""
 
     def __init__(self, backend=None, *, n_regions: int = 2,
                  n_shells: int = 1,
@@ -155,6 +160,26 @@ class Client:
         return self.serving.submit(prompt, params, tenant=tenant)
 
     # -- observability ---------------------------------------------------
+    @property
+    def tracer(self):
+        """The flight recorder threaded through the backend (``tracer=``
+        shell kwarg), or ``None`` when tracing is off."""
+        return getattr(self.scheduler, "tracer", None)
+
+    @property
+    def metrics(self):
+        """The live metrics registry threaded through the backend
+        (``metrics=`` shell kwarg), or ``None`` when telemetry is off."""
+        return getattr(self.scheduler, "metrics", None)
+
+    @property
+    def alerts(self) -> list:
+        """Currently-firing alerts from the attached ``TelemetryMonitor``
+        (empty when telemetry is off or no monitor is sampling)."""
+        reg = self.metrics
+        mon = getattr(reg, "monitor", None) if reg is not None else None
+        return mon.alerts() if mon is not None else []
+
     def report(self) -> dict:
         """The scheduler's versioned report (layer ``scheduler``; see
         ``core/reporting.py``)."""

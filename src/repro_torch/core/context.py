@@ -233,9 +233,8 @@ class KVBlockPool:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         self.n_blocks = n_blocks
         self.block_size = block_size
-        # live metrics registry (the reference's obs/registry.py; not
-        # ported yet, so callers pass None): None-guarded, zero cost when
-        # disabled
+        # live metrics registry (``repro_torch.obs.MetricsRegistry``, the
+        # serving engine's): None-guarded, zero cost when disabled
         self.metrics = metrics
         self._free = list(range(n_blocks - 1, 0, -1))  # pop() -> 1, 2, ...
         self._by_sid: dict = {}        # sid -> [block ids, in position order]

@@ -26,9 +26,10 @@ region that time-shares the card (a new CUDA stream), and ``replan`` and
 ``_rescue_placement`` do nothing, because the floorplan is overlapped.  On
 the CPU, ``devices=["cpu"] * n`` gives ``n`` distinct device objects, and
 the floorplanner (which keys on ``id(d)``) cuts them like a real grid.  The
-``tracer``/``metrics`` hooks read ``None`` until the flight recorder is
-ported.  Section references ("DESIGN.md §6") point at the reference's
-``DESIGN.md`` at the repository root.
+``tracer``/``metrics`` hooks read the shell's (``Shell(tracer=,
+metrics=)``): resizes go on the ``("pool", 0)`` track as ``pool_resize``
+events and count in ``pool_resizes_total``. Section references ("DESIGN.md
+§6") point at the reference's ``DESIGN.md`` at the repository root.
 """
 from __future__ import annotations
 

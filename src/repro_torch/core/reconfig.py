@@ -22,7 +22,9 @@ dropped when its task already left the queues.
 Optional ``simulate_partial_s`` / ``simulate_full_s`` inject the paper's
 measured bitstream-load times (0.07 s / 0.22 s) so scheduler experiments can
 reproduce the paper's timing regime.  Cache, stats and report keys match
-the reference's ``repro.core.reconfig`` key for key.
+the reference's ``repro.core.reconfig`` key for key, and so do the
+``icap``/``compile`` spans and histograms emitted when the shell threads a
+tracer or a metrics registry through the engine.
 """
 from __future__ import annotations
 
@@ -173,6 +175,10 @@ class ReconfigEngine:
         self.simulate_full_s = simulate_full_s
         self._lock = threading.Lock()  # stats + inflight table
         self._inflight: Dict[tuple, _Inflight] = {}
+        # flight recorder and live metrics registry (``repro_torch.obs``),
+        # set by the owning shell; None disables each at zero cost
+        self.tracer = None
+        self.metrics = None
 
     def cache_key(self, kernel: str, sig: tuple, geometry: tuple,
                   program: str = "chunk") -> tuple:
@@ -222,9 +228,22 @@ class ReconfigEngine:
                 # later cache hits on this entry must not claim one either
                 entry.consumed = True
 
+        t_wait0 = time.perf_counter()
         with self._icap:  # only one RR loads a bitstream at a time
+            t_acq = time.perf_counter()
             if self.simulate_partial_s:
                 time.sleep(self.simulate_partial_s)
+        tr = self.tracer
+        if tr is not None:
+            # hold span on the shared-port track; acquire wait rides along
+            # as an attr so the derived pass can total ICAP serialization
+            tr.emit_span("icap", ("icap", 0), t_acq, kernel=kernel_name,
+                         wait_s=t_acq - t_wait0)
+        m = self.metrics
+        if m is not None:
+            now = time.perf_counter()
+            m.histogram("icap_hold_seconds").observe(now - t_acq, t=now)
+            m.histogram("icap_wait_seconds").observe(t_acq - t_wait0, t=now)
         dt = time.perf_counter() - t0
         with self._lock:
             self.stats.partial_loads += 1
@@ -318,6 +337,14 @@ class ReconfigEngine:
         fn = make_pipelined_chunk(kd.fn)
         with self._lock:
             self.stats.total_compile_s += time.perf_counter() - t0
+        tr = self.tracer
+        if tr is not None:
+            tr.emit_span("compile", ("compile", 0), t0,
+                         kernel=kd.name, program=program)
+        m = self.metrics
+        if m is not None:
+            m.histogram("compile_seconds").observe(
+                time.perf_counter() - t0)
         return fn
 
     # ------------------------------------------------------------------

@@ -36,6 +36,12 @@ the port.  Context and payload buffers stay device-resident across chunks
 and across preempt/resume on the same region; the host copy of a
 preemption commit is produced lazily, only when a cross-region resume
 needs host bytes.
+
+With a tracer or a metrics registry (``Shell(tracer=, metrics=)``) the
+region emits the reference's events and instruments: ``reconfig``, ``run``
+and ``chunk`` spans, ``preempt_request``, ``preempt_honored``, ``done`` and
+``region_failed``, all stamped on the host clock: the port's
+``DESIGN.md``, "What a span covers on the card", says what each spans.
 """
 from __future__ import annotations
 
@@ -129,10 +135,18 @@ class Region:
                  interrupts: InterruptController, *, devices,
                  geometry: Tuple[int, ...] = (1,),
                  chunk_budget: Optional[int] = None,
-                 engine_mode: str = "pipelined"):
+                 engine_mode: str = "pipelined",
+                 tracer=None, metrics=None):
         self.rid = rid
         self.engine = engine
         self.interrupts = interrupts
+        # flight recorder and live metrics registry (``repro_torch.obs``):
+        # None disables each, and every emit site below is guarded to a
+        # single None check
+        self.tracer = tracer
+        self.metrics = metrics
+        self._track = ("region", rid)
+        self._t_preempt_req: Optional[float] = None
         # the slice may start empty (the pool's placeholder for a carved
         # slice) and is re-cut by replans; device and stream follow it
         self.devices = list(devices)
@@ -208,10 +222,23 @@ class Region:
         self._post("launch", task)
 
     def request_preempt(self):
+        tr = self.tracer
+        if tr is not None:
+            cur = self.current_task
+            tr.emit("preempt_request", self._track,
+                    tid=cur.tid if cur is not None else None)
+        m = self.metrics
+        if m is not None:
+            m.counter("preempt_requests_total", region=self.rid).inc()
+        if self._t_preempt_req is None:
+            # first unhonored request wins: response latency is measured
+            # from what a waiting scheduler actually experiences
+            self._t_preempt_req = time.perf_counter()
         self._preempt.set()
 
     def cancel_preempt(self):
         self._preempt.clear()
+        self._t_preempt_req = None
 
     def inject_failure(self):
         """Kill this region (node failure simulation)."""
@@ -297,6 +324,9 @@ class Region:
                 finally:
                     self._dec()
             except RegionFailure:
+                if self.tracer is not None:
+                    self.tracer.emit("region_failed", self._track,
+                                     tid=task.tid if task else None)
                 self.interrupts.raise_interrupt(Event(
                     EventKind.REGION_FAILED, self.rid, task=task))
                 return  # thread dies; scheduler handles re-enqueue
@@ -320,6 +350,7 @@ class Region:
         if self.loaded == key:
             return
         task.status = TaskStatus.RECONFIGURING
+        t_rc0 = time.perf_counter()
         fn, dt = self.engine.load(task.kernel, task.args, self.geometry,
                                   self.devices)
         self.loaded = key
@@ -330,6 +361,15 @@ class Region:
             self.stats.kernel_mode = ("cuda" if self.device.type == "cuda"
                                       else "torch")
         task.n_reconfigs += 1
+        tr = self.tracer
+        if tr is not None:
+            tr.emit_span("reconfig", self._track, t_rc0, tid=task.tid,
+                         kernel=task.kernel)
+        m = self.metrics
+        if m is not None:
+            m.histogram("region_reconfig_seconds",
+                        region=self.rid).observe(dt)
+            m.counter("reconfigs_total", region=self.rid).inc()
         self.interrupts.raise_interrupt(Event(
             EventKind.RECONFIG_DONE, self.rid, task=task, payload=dt))
 
@@ -408,7 +448,23 @@ class Region:
         task.n_preemptions += 1
         self.stats.preemptions += 1
         self.current_task = None
-        self.stats.busy_s += time.perf_counter() - t_busy0
+        now = time.perf_counter()
+        self.stats.busy_s += now - t_busy0
+        tr = self.tracer
+        if tr is not None:
+            tr.emit_span("run", self._track, t_busy0, tid=task.tid)
+            tr.emit("preempt_honored", self._track, tid=task.tid)
+        m = self.metrics
+        if m is not None:
+            m.counter("region_run_seconds_total", region=self.rid).inc(
+                now - t_busy0)
+            m.counter("preemptions_total", region=self.rid).inc()
+            t_req = self._t_preempt_req
+            if t_req is not None:
+                m.histogram("preempt_response_seconds",
+                            region=self.rid).observe(
+                    max(now - t_req, 0.0), t=now)
+        self._t_preempt_req = None
         self.interrupts.raise_interrupt(Event(
             EventKind.TASK_PREEMPTED, self.rid, task=task))
 
@@ -426,7 +482,17 @@ class Region:
             task.result = tuple(b.cpu().numpy() for b in bufs[:2])
         self.stats.kernels_run += 1
         self.current_task = None
-        self.stats.busy_s += time.perf_counter() - t_busy0
+        now = time.perf_counter()
+        self.stats.busy_s += now - t_busy0
+        tr = self.tracer
+        if tr is not None:
+            tr.emit_span("run", self._track, t_busy0, tid=task.tid)
+            tr.emit("done", self._track, tid=task.tid)
+        m = self.metrics
+        if m is not None:
+            m.counter("region_run_seconds_total", region=self.rid).inc(
+                now - t_busy0)
+            m.counter("kernels_run_total", region=self.rid).inc()
         self.interrupts.raise_interrupt(Event(
             EventKind.TASK_DONE, self.rid, task=task))
 
@@ -459,6 +525,8 @@ class Region:
             ctx, bufs, done = self.executable(ctx, bufs, ints, floats, budget)
             pending.append((done, self._record()))
 
+        tr = self.tracer
+
         def pop() -> int:
             done, ev = pending.popleft()
             ev.synchronize()
@@ -467,11 +535,17 @@ class Region:
         def retire(done: int):
             """Account one resolved chunk boundary (EWMA, per-task work)."""
             nonlocal t_last
+            t_prev = t_last
             dt = time.perf_counter() - t_last
             if self.slowdown_s:
                 time.sleep(self.slowdown_s)
                 dt += self.slowdown_s
             t_last = time.perf_counter()
+            if tr is not None:
+                # traced before on_chunk, so a hook that preempts at this
+                # boundary finds the chunk already on the timeline
+                tr.emit("chunk", self._track, tid=task.tid,
+                        t=t_prev, dur=dt)
             a = 0.3
             self.stats.chunk_ewma_s = (
                 dt if self.stats.chunks == 0

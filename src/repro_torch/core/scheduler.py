@@ -18,10 +18,13 @@ decisions, drain-retirements, and floorplan replans all happen on the loop
 thread.  Dispatch consults placement feasibility (``Task.footprint`` vs the
 region's device-slice width) through the policy's ``pick_region``.
 
-Not ported yet, each with its own later slice: the flight recorder and
-live metrics (``repro.obs``: the report's ``trace``/``telemetry`` sections
-read ``{"enabled": False}``), cross-shell handoffs, and scheduler
-checkpoints (``checkpoint_path`` raises).
+The scheduler adopts the shell's flight recorder and metrics registry
+(``repro_torch.obs``): it emits ``submit``, ``queue`` and ``dispatch`` on
+the ``("sched", 0)`` track and the per-tenant task counters and latency
+histograms, and its report carries ``trace_section``/``telemetry_section``
+(``{"enabled": False}`` without them).  Not ported yet, each with its own
+later slice: cross-shell handoffs and scheduler checkpoints
+(``checkpoint_path`` raises).
 
 Serve steps (paper):
   (1) find an available region;
@@ -51,6 +54,9 @@ from repro_torch.core.region import Region, RegionState
 from repro_torch.core.shell import Shell
 from repro_torch.core.submit import SubmissionQueue, TaskHandle
 from repro_torch.core.task import N_PRIORITIES, Task, TaskStatus
+from repro_torch.obs.metrics import trace_section
+from repro_torch.obs.registry import RATIO_BUCKETS
+from repro_torch.obs.slo import size_class, telemetry_section
 
 
 @dataclass
@@ -138,6 +144,12 @@ class Scheduler:
                 f"config must be a SchedulerConfig (or None), got "
                 f"{type(config).__name__}")
         self.shell = shell
+        # flight recorder and live metrics registry, shared with the shell
+        # so scheduler events land on the same timeline as the regions'
+        # spans; None disables each at zero cost
+        self.tracer = getattr(shell, "tracer", None)
+        self._trace_track = ("sched", 0)
+        self.metrics = getattr(shell, "metrics", None)
         self.cfg = (config or SchedulerConfig()).validate()
         # elastic region pool (core/pool.py); ticked from the event loop
         self.pool = pool
@@ -217,6 +229,14 @@ class Scheduler:
         while the task is still queued.  The handle resolves once a
         serving loop processes the task — submitting while no loop runs
         defers the work to the next ``run()``/``run_forever()``."""
+        tr = self.tracer
+        if tr is not None:
+            tr.emit("submit", self._trace_track, tid=task.tid,
+                    kernel=task.kernel, priority=task.priority)
+        m = self.metrics
+        if m is not None:
+            m.counter("tasks_submitted_total", tenant=task.tenant,
+                      priority=task.priority).inc()
         return self._submissions.submit(task)
 
     def run(self, tasks_to_arrive: List[Task], quiet: bool = True,
@@ -445,6 +465,10 @@ class Scheduler:
             self.policy.on_requeue(task)
         else:
             self.policy.enqueue(task)
+        tr = self.tracer
+        if tr is not None:
+            tr.emit("queue", self._trace_track, tid=task.tid,
+                    requeue=requeue)
         self._refresh_prefetch_hints()
 
     def _cancel_queued(self):
@@ -537,6 +561,23 @@ class Scheduler:
             ev.task.deadline_missed = self._deadline_missed(ev.task)
             if ev.task.deadline_missed:
                 self.deadline_misses_total += 1
+            m = self.metrics
+            if m is not None:
+                t = ev.task
+                m.counter("tasks_done_total", tenant=t.tenant).inc()
+                if t.deadline_missed:
+                    m.counter("deadline_misses_total",
+                              tenant=t.tenant).inc()
+                if t.turnaround is not None:
+                    m.histogram("task_turnaround_seconds",
+                                tenant=t.tenant).observe(t.turnaround)
+                    # convoy-detector feed: slowdown = turnaround over
+                    # ideal (pure execution) service time, per size class
+                    ideal = max(t.run_s, 1e-6)
+                    m.histogram("task_slowdown_ratio",
+                                buckets=RATIO_BUCKETS,
+                                size_class=size_class(ideal)).observe(
+                        t.turnaround / ideal)
             self.policy.on_task_done(ev.task)
             handle = self._handles.get(ev.task.tid)
             if handle is not None:
@@ -660,6 +701,14 @@ class Scheduler:
         return True
 
     def _dispatch(self, region: Region, task: Task, quiet=True):
+        tr = self.tracer
+        if tr is not None:
+            tr.emit("dispatch", self._trace_track, tid=task.tid,
+                    rid=region.rid)
+        m = self.metrics
+        if m is not None:
+            m.counter("dispatches_total", tenant=task.tenant,
+                      phase=task.phase or "task").inc()
         task.last_dispatched_rid = region.rid
         self._unsettled[region.rid] = task
         key = (task.kernel, task.args.signature(), region.geometry)
@@ -903,6 +952,6 @@ class Scheduler:
             "dispatch_stall_s": es.total_stall_s,
             "pool": pool_stats,
             "reconfig": detail,
-            "trace": {"enabled": False},
-            "telemetry": {"enabled": False},
+            "trace": trace_section(self.tracer),
+            "telemetry": telemetry_section(self.metrics),
         })

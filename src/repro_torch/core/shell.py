@@ -21,6 +21,12 @@ The shell also owns the reconfiguration plumbing: the ``ReconfigEngine``
 that generates bitstreams off the dispatch path.  Both are shared handles:
 regions added after construction reuse the same engine, cache, and
 prefetcher.
+
+``tracer=`` (a ``repro_torch.obs.Tracer``) and ``metrics=`` (a
+``MetricsRegistry``) are fanned out the same way: the engine, every region
+(those the pool adds included), the pool and the scheduler all emit into
+the one handle.  ``None``, the default, disables each at the cost of one
+attribute read per site.
 """
 from __future__ import annotations
 
@@ -61,16 +67,18 @@ class Shell:
                  region_widths: Optional[Sequence[int]] = None,
                  engine: str = "pipelined",
                  tracer=None, metrics=None):
-        if tracer is not None or metrics is not None:
-            raise NotImplementedError(
-                "the flight recorder and live metrics (repro.obs) are not "
-                "ported yet; pass tracer=None, metrics=None")
         self.devices = resolve_devices(devices)
         self.interrupts = InterruptController()
+        # flight recorder and live metrics registry: one shared handle each
+        # for the whole shell; None disables them at zero cost
+        self.tracer = tracer
+        self.metrics = metrics
         self.engine = ReconfigEngine(simulate_partial_s=simulate_partial_s,
                                      simulate_full_s=simulate_full_s,
                                      cache_capacity=cache_capacity,
                                      device=self.devices[0])
+        self.engine.tracer = tracer
+        self.engine.metrics = metrics
         # the worker thread starts lazily with the scheduler's first hint
         self.prefetcher = BitstreamPrefetcher(
             self.engine, max_queue=prefetch_max_queue, auto_start=False)
@@ -104,7 +112,8 @@ class Shell:
         r = Region(rid, self.engine, self.interrupts,
                    devices=list(devices), geometry=(len(devices),),
                    chunk_budget=self.chunk_budget,
-                   engine_mode=self.engine_mode)
+                   engine_mode=self.engine_mode,
+                   tracer=self.tracer, metrics=self.metrics)
         r.slowdown_s = self.region_slowdown_s
         self.floorplanner.bind(rid, devices)
         self.regions.append(r)

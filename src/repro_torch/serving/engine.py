@@ -1,10 +1,13 @@
 """Continuous-batching token-serving engine (DESIGN.md §9) — the port of
 ``repro/serving/engine.py``, behaviour unchanged but for the device: the LM
-backends live on the backend shell's device, the engine drops a finished
-task's device buffers once the LM has harvested them (the reference keeps
-them), and the report's ``trace`` and ``telemetry`` sections read
-``{"enabled": False}`` (the flight recorder and live metrics are not ported
-yet, so ``tracer``/``metrics`` stay None).
+backends live on the backend shell's device, and the engine drops a
+finished task's device buffers once the LM has harvested them (the
+reference keeps them).  The engine adopts the backend's flight recorder
+and metrics registry (``repro_torch.obs``), so its ``seq_submit``,
+``prefill_dispatch``, ``ttft``, ``decode_round`` and ``slot_busy`` events
+share the timeline of the regions that ran them, and its report's
+``trace``/``telemetry`` sections read them (``{"enabled": False}``
+without).
 
 The engine turns a stream of ``Sequence`` submissions into region tasks:
 
@@ -47,6 +50,8 @@ import torch
 from repro_torch.core.reporting import safe_rate, stamp
 from repro_torch.core.streams import record_ready, to_host, wait_ready
 from repro_torch.core.task import Task
+from repro_torch.obs.metrics import trace_section
+from repro_torch.obs.slo import telemetry_section
 from repro_torch.serving.kernels import (COL_ACTIVE, COL_LAST_TOK, COL_N_EMIT,
                                          init_state)
 from repro_torch.serving.sequence import (SamplingParams, Sequence,
@@ -258,10 +263,12 @@ class ServingEngine:
                 f"backend must expose submit(task); got "
                 f"{type(backend).__name__}")
         self.backend = backend
-        # the reference's flight recorder and metrics registry (repro.obs)
-        # are not ported yet: every hook below stays off
-        self.tracer = None
-        self.metrics = None
+        # flight recorder and live metrics registry: the backend's handles
+        # (the port's Scheduler exposes both), so serving events and
+        # histograms share the timeline and registry of the regions that
+        # ran them; None disables each at zero cost
+        self.tracer = getattr(backend, "tracer", None)
+        self.metrics = getattr(backend, "metrics", None)
         self._trace_track = ("serving", 0)
         self.cfg = (config or ServingConfig()).validate()
         # the LM backend: builds prefill/decode bundles, owns the model
@@ -728,6 +735,6 @@ class ServingEngine:
                                        "engine_mode", None),
                 "lm": self.lm.name,
                 "kv": self.lm.kv_stats(),
-                "trace": {"enabled": False},
-                "telemetry": {"enabled": False},
+                "trace": trace_section(self.tracer),
+                "telemetry": telemetry_section(self.metrics),
             })

@@ -218,7 +218,6 @@ class _ClusterLike:
     ({"n_shells": 2}, "multi-shell"),
     ({"backend": _ClusterLike()}, "cluster frontend"),
     ({"engine": "megakernel"}, "megakernel"),
-    ({"tracer": object()}, "not ported"),
     ({"scheduler_config": SchedulerConfig(checkpoint_path="x")},
      "checkpoints"),
 ])

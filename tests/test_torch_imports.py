@@ -1,5 +1,6 @@
 """The port stands alone: importing every ``repro_torch`` module (among
-them ``core.pool`` and ``controller.controller``) and ``chip_smoke.py``
+them ``core.pool``, ``controller.controller`` and ``obs`` with its six
+modules) and ``chip_smoke.py``
 brings in neither ``jax`` nor any ``repro.`` module."""
 import os
 import subprocess
@@ -17,9 +18,13 @@ import importlib, pkgutil, sys
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
-# the elastic pool and the deprecated Controller, by name: a module the
-# walk missed would pass unchecked
-for name in ("repro_torch.core.pool", "repro_torch.controller.controller"):
+# the elastic pool, the deprecated Controller and the flight recorder, by
+# name: a module the walk missed would pass unchecked
+for name in ("repro_torch.core.pool", "repro_torch.controller.controller",
+             "repro_torch.obs", "repro_torch.obs.tracer",
+             "repro_torch.obs.registry", "repro_torch.obs.metrics",
+             "repro_torch.obs.export", "repro_torch.obs.exporter",
+             "repro_torch.obs.slo"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)

@@ -1,0 +1,677 @@
+"""The port's flight recorder (``repro_torch.obs``) against the reference's
+(``repro.obs``): the twins of ``tests/test_obs.py`` (all but its megakernel
+case, which waits for the megakernel engine), run on ``devices=["cpu"]``.
+
+- **Pure layers, bitwise.**  One event stream made from a numpy seed
+  (submit, queue, dispatch, reconfig, icap, compile, chunk, run,
+  preempt_request, preempt_honored, done and pool_resize over two regions,
+  with int and string track instances) goes into a tracer of each package
+  with ``t`` and ``dur`` given; the rings, ``derive_metrics``,
+  ``trace_section`` and ``export_chrome_trace`` must give equal objects and
+  equal JSON text.
+- **Wiring, event for event.**  A one-region run preempted at a chunk
+  boundary placed by a hook (``on_chunk`` in the port; the reference's
+  region has none, so its per-iteration failure check is wrapped) must give
+  the same event kinds per track and task, and the same counters and
+  histogram counts, in both packages.
+- **The bursty two-region run**, the twin of ``_traced_bursty_run``, with
+  the urgent arrival placed from ``on_chunk`` instead of a sleep: its trace,
+  its report's ``trace`` section, the chunk events against
+  ``stats.chunks``, and its outputs bitwise against an untraced run.
+- ``tools/trace_report.py`` reads the port's Chrome trace unchanged.
+"""
+import json
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import obs as R_obs  # noqa: E402
+from repro.controller import kernels as R_kernels  # noqa: E402
+from repro.core import scheduler as R_scheduler  # noqa: E402
+from repro.core import shell as R_shell  # noqa: E402
+from repro.core import task as R_task  # noqa: E402
+from repro_torch import obs as P_obs  # noqa: E402
+from repro_torch.controller import kernels as P_kernels  # noqa: E402
+from repro_torch.core import scheduler as P_scheduler  # noqa: E402
+from repro_torch.core import shell as P_shell  # noqa: E402
+from repro_torch.core import task as P_task  # noqa: E402
+from repro_torch.core.interrupts import EventKind  # noqa: E402
+from repro_torch.core.pool import RegionPool  # noqa: E402
+from repro_torch.core.reporting import safe_rate  # noqa: E402
+from repro_torch.core.scheduler import Scheduler, SchedulerConfig  # noqa: E402
+from repro_torch.core.shell import Shell  # noqa: E402
+from repro_torch.core.task import Task  # noqa: E402
+from repro_torch.kernels.blur.ref import iterated_blur_ref  # noqa: E402
+from repro_torch.kernels.blur.tasks import make_image  # noqa: E402
+from repro_torch.obs import (Tracer, derive_metrics,  # noqa: E402
+                             export_chrome_trace, trace_section)
+
+REPO = Path(__file__).resolve().parents[1]
+TOOL = REPO / "tools" / "trace_report.py"
+SIZE = 30          # pads to [130, 130]: 4 row blocks a pass
+TIMEOUT = 60.0
+SEEDS = (0, 1, 2)
+
+
+def _blur_task(rng, iters=2, priority=4, kernel="MedianBlur"):
+    img = make_image(rng, SIZE)
+    kd = P_kernels.get_kernel(kernel)
+    return Task(kernel=kernel,
+                args=kd.bundle(img, np.zeros_like(img), H=SIZE, W=SIZE,
+                               iters=iters),
+                priority=priority)
+
+
+# -- one seeded event stream, fed to both packages ---------------------------
+
+def _event_stream(seed):
+    """(kind, track, tid, t, dur, attrs) tuples: six tasks over two regions,
+    each submitted, queued, dispatched, reconfigured (an ICAP hold, a
+    compile for a new key), run in chunks; some preempted and resumed;
+    pool resizes and string-instance node tracks besides."""
+    rng = np.random.default_rng(seed)
+    out = []
+    t = 100.0 + float(rng.random())
+
+    def step(scale=1e-3):
+        nonlocal t
+        t += float(rng.exponential(scale))
+        return t
+
+    keys = set()
+    for tid in range(1, 7):
+        rid = int(rng.integers(0, 2))
+        kernel = ("MedianBlur", "GaussianBlur")[int(rng.integers(0, 2))]
+        out.append(("submit", ("sched", 0), tid, step(), 0.0,
+                    {"kernel": kernel, "priority": int(rng.integers(0, 5))}))
+        out.append(("queue", ("sched", 0), tid, step(), 0.0,
+                    {"requeue": False}))
+        for attempt in range(1 + int(rng.integers(0, 2))):
+            out.append(("dispatch", ("sched", 0), tid, step(), 0.0,
+                        {"rid": rid}))
+            t_rc = step()
+            if (kernel, rid) not in keys:
+                keys.add((kernel, rid))
+                out.append(("compile", ("compile", 0), None, t_rc,
+                            float(rng.exponential(2e-3)),
+                            {"kernel": kernel, "program": "chunk"}))
+            hold = float(rng.exponential(1e-4))
+            out.append(("icap", ("icap", 0), None, t_rc, hold,
+                        {"kernel": kernel,
+                         "wait_s": float(rng.exponential(1e-5))}))
+            out.append(("reconfig", ("region", rid), tid, t_rc,
+                        hold + 1e-5, {"kernel": kernel}))
+            t_run = step()
+            for _ in range(int(rng.integers(1, 5))):
+                c0 = t
+                out.append(("chunk", ("region", rid), tid, c0,
+                            step(2e-3) - c0, None))
+            if attempt == 0 and rng.random() < 0.6:
+                out.append(("preempt_request", ("region", rid), tid,
+                            step(), 0.0, None))
+                out.append(("run", ("region", rid), tid, t_run,
+                            step() - t_run, None))
+                out.append(("preempt_honored", ("region", rid), tid, t,
+                            0.0, None))
+                out.append(("queue", ("sched", 0), tid, step(), 0.0,
+                            {"requeue": True}))
+                rid = 1 - rid
+            else:
+                out.append(("run", ("region", rid), tid, t_run,
+                            step() - t_run, None))
+                out.append(("done", ("region", rid), tid, t, 0.0, None))
+                break
+    for i, direction in enumerate(("grow", "shrink")):
+        out.append(("pool_resize", ("pool", 0), None, step(), 0.0,
+                    {"direction": direction, "rid": 2, "n_regions": 3 - i}))
+    for inst in ("node-ab", "node-ba", 0, "node-c"):
+        out.append(("hb", ("node", inst), None, step(), 0.0, None))
+    # a late request that is never honoured (an unmatched one)
+    out.append(("preempt_request", ("region", 0), None, step(), 0.0, None))
+    order = rng.permutation(len(out))          # emit order != time order
+    return [out[i] for i in order]
+
+
+def _feed(tracer, stream):
+    for kind, track, tid, t, dur, attrs in stream:
+        tracer.emit(kind, track, tid=tid, t=t, dur=dur, **(attrs or {}))
+    return tracer
+
+
+LAYERS = ("events", "derive", "section", "chrome", "chrome_events")
+
+
+@pytest.mark.parametrize("capacity", [65536, 24], ids=["whole", "wrapped"])
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("layer", LAYERS)
+def test_pure_layers_equal_reference(layer, seed, capacity, tmp_path):
+    stream = _event_stream(seed)
+    ref = _feed(R_obs.Tracer(capacity), stream)
+    port = _feed(P_obs.Tracer(capacity), stream)
+    assert port.n_emitted == ref.n_emitted == len(stream)
+    assert port.dropped == ref.dropped
+    if layer == "events":
+        assert [tuple(e) for e in port.events()] == \
+            [tuple(e) for e in ref.events()]
+    elif layer == "derive":
+        got = P_obs.derive_metrics(port.events())
+        want = R_obs.derive_metrics(ref.events())
+        assert got == want
+        assert json.dumps(got) == json.dumps(want)
+        assert got["per_task"]["n_tasks"] >= 1 or capacity < len(stream)
+    elif layer == "section":
+        got, want = P_obs.trace_section(port), R_obs.trace_section(ref)
+        assert got == want and json.dumps(got) == json.dumps(want)
+        assert got["enabled"] is True
+    elif layer == "chrome":
+        port.t0 = ref.t0 = 99.5     # the one field set from the clock
+        got = P_obs.export_chrome_trace(port, path=str(tmp_path / "p.json"))
+        want = R_obs.export_chrome_trace(ref, path=str(tmp_path / "r.json"))
+        assert json.dumps(got) == json.dumps(want)
+        assert (tmp_path / "p.json").read_bytes() == \
+            (tmp_path / "r.json").read_bytes()
+    else:  # a bare event iterable, with and without an explicit t0
+        for t0 in (None, 99.5):
+            got = P_obs.export_chrome_trace(port.events(), t0=t0)
+            want = R_obs.export_chrome_trace(ref.events(), t0=t0)
+            assert json.dumps(got) == json.dumps(want)
+
+
+def test_event_stream_covers_every_kind():
+    kinds = {k for k, *_ in _event_stream(0)}
+    assert {"submit", "queue", "dispatch", "reconfig", "icap", "compile",
+            "chunk", "run", "preempt_request", "preempt_honored", "done",
+            "pool_resize"} <= kinds
+    d = derive_metrics(_feed(Tracer(), _event_stream(0)).events())
+    assert d["preempt_response"]["n"] >= 1
+    assert d["preempt_response"]["unmatched_requests"] >= 1
+    assert set(d["regions"]) == {"0", "1"}
+
+
+# -- ring buffer --------------------------------------------------------------
+
+def test_tracer_ring_bounded_and_drop_count():
+    tr = Tracer(capacity=8)
+    for i in range(20):
+        tr.emit("tick", ("sched", 0), tid=i)
+    assert len(tr) == 8
+    assert tr.n_emitted == 20
+    assert tr.dropped == 12
+    assert [e.tid for e in tr.events()] == list(range(12, 20))
+    tr.clear()
+    assert len(tr) == 0 and tr.n_emitted == 0 and tr.dropped == 0
+
+
+def test_tracer_capacity_validated():
+    with pytest.raises(ValueError):
+        Tracer(capacity=0)
+
+
+def test_tracer_concurrent_emits():
+    tr = Tracer(capacity=10_000)
+    n, per = 8, 500
+
+    def worker(k):
+        for i in range(per):
+            tr.emit("t", ("region", k), tid=i)
+
+    ths = [threading.Thread(target=worker, args=(k,)) for k in range(n)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join()
+    assert tr.n_emitted == n * per
+    assert len(tr) == n * per
+
+
+def test_span_duration_never_negative():
+    tr = Tracer()
+    tr.emit_span("s", ("region", 0), time.perf_counter() + 10.0)
+    assert tr.events()[0].dur == 0.0
+
+
+def test_emit_attrs_cannot_shadow_kind_or_track():
+    tr = Tracer()
+    tr.emit("resize", ("pool", 0), kind="grow", track="x")
+    ev = tr.events()[0]
+    assert ev.kind == "resize" and ev.track == ("pool", 0)
+    assert ev.attrs == {"kind": "grow", "track": "x"}
+
+
+def test_pool_resize_events_traced():
+    """A traced shell on a CPU grid with a ``RegionPool``: grow and shrink
+    are ``pool_resize`` events on the ``("pool", 0)`` track, and the grown
+    region, the engine and the shell share the one tracer."""
+    tracer = Tracer()
+    shell = Shell(n_regions=2, devices=["cpu"] * 4, tracer=tracer)
+    pool = RegionPool(shell, min_regions=1, max_regions=3)
+    try:
+        assert shell.engine.tracer is tracer
+        region = pool.grow()
+        assert region is not None and region.tracer is tracer
+        pool.begin_retire(region)  # idle -> drains immediately
+        assert pool.finalize_retirements() == [region.rid]
+    finally:
+        shell.shutdown()
+    evs = [e for e in tracer.events() if e.kind == "pool_resize"]
+    assert [e.attrs["direction"] for e in evs] == ["grow", "shrink"]
+    assert all(e.track == ("pool", 0) for e in evs)
+    assert evs[0].attrs["rid"] == region.rid == evs[1].attrs["rid"]
+    assert evs[0].attrs["n_regions"] == 3 and evs[1].attrs["n_regions"] == 2
+
+
+def test_region_failure_traced():
+    """An injected failure is a ``region_failed`` instant on the region's
+    track, tagged with the task that was dispatched there."""
+    tracer = Tracer()
+    shell = Shell(n_regions=1, devices=["cpu"], prefetch=False,
+                  tracer=tracer)
+    try:
+        region = shell.regions[0]
+        task = _blur_task(np.random.default_rng(0))
+        region.inject_failure()
+        region.enqueue_reconfig(task)
+        ev = shell.interrupts.wait(TIMEOUT)
+        assert ev is not None and ev.kind is EventKind.REGION_FAILED
+    finally:
+        shell.shutdown()
+    failed = [e for e in tracer.events() if e.kind == "region_failed"]
+    assert [(e.track, e.tid) for e in failed] == [(("region", 0), task.tid)]
+
+
+# -- export + derive ----------------------------------------------------------
+
+def test_export_and_derive_on_empty_tracer(tmp_path):
+    tr = Tracer()
+    out = export_chrome_trace(tr, path=str(tmp_path / "empty.json"))
+    assert out["traceEvents"] == []
+    loaded = json.loads((tmp_path / "empty.json").read_text())
+    assert loaded["traceEvents"] == []
+    d = derive_metrics([])
+    assert d["n_events"] == 0
+    assert d["per_task"]["n_tasks"] == 0
+
+
+def test_trace_section_disabled():
+    assert trace_section(None) == {"enabled": False}
+
+
+def test_export_chrome_trace_structure(tmp_path):
+    tr = Tracer()
+    t0 = time.perf_counter()
+    tr.emit("submit", ("sched", 0), tid=1, kernel="MedianBlur")
+    tr.emit_span("run", ("region", 0), t0, tid=1, t_end=t0 + 0.01)
+    tr.emit_span("icap", ("icap", 0), t0, t_end=t0 + 0.001)
+    path = tmp_path / "t.json"
+    out = export_chrome_trace(tr, path=str(path))
+    evs = json.loads(path.read_text())["traceEvents"]
+    metas = [e for e in evs if e["ph"] == "M"]
+    spans = [e for e in evs if e["ph"] == "X"]
+    instants = [e for e in evs if e["ph"] == "i"]
+    thread_names = {e["args"]["name"] for e in metas
+                    if e["name"] == "thread_name"}
+    assert {"sched 0", "region 0", "icap 0"} <= thread_names
+    assert len(spans) == 2 and len(instants) == 1
+    run = next(e for e in spans if e["name"] == "run")
+    assert run["dur"] == pytest.approx(10_000, rel=0.01)
+    assert all(e["ts"] >= 0 for e in spans + instants)
+    assert out["otherData"]["events_dropped"] == 0
+
+
+def test_export_string_track_instances_get_unique_tids():
+    tr = Tracer()
+    tr.emit("hb", ("node", "node-ab"))
+    tr.emit("hb", ("node", "node-ba"))  # anagram: equal ord-sum
+    tr.emit("hb", ("node", 0))          # int instance keeps tid 0
+    doc = export_chrome_trace(tr)
+    metas = [e for e in doc["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "thread_name"]
+    name_of = {m["tid"]: m["args"]["name"] for m in metas}
+    assert len(name_of) == 3
+    assert name_of[0] == "node 0"
+    for e in doc["traceEvents"]:
+        if e["ph"] == "i":
+            assert name_of[e["tid"]].startswith("node")
+    tids = {next(m["tid"] for m in metas
+                 if m["args"]["name"] == f"node {inst}")
+            for inst in ("node-ab", "node-ba", 0)}
+    assert len(tids) == 3
+
+
+def test_export_serving_tracks():
+    tr = Tracer()
+    t0 = time.perf_counter()
+    tr.emit("seq_submit", ("serving", 0), tid=1)
+    tr.emit_span("prefill", ("slot", 0), t0, tid=1, t_end=t0 + 0.01)
+    tr.emit_span("decode_round", ("slot", 1), t0, tid=2, t_end=t0 + 0.02)
+    tr.emit_span("lm_step", ("lm", 0), t0, t_end=t0 + 0.005)
+    doc = export_chrome_trace(tr)
+    procs = {e["args"]["name"] for e in doc["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "process_name"}
+    assert {"serving engine", "serving slots", "lm pipeline"} <= procs
+    threads = {e["args"]["name"] for e in doc["traceEvents"]
+               if e["ph"] == "M" and e["name"] == "thread_name"}
+    assert {"slot 0", "slot 1", "lm 0"} <= threads
+    spans = [e for e in doc["traceEvents"]
+             if e["ph"] == "X" and e["cat"] == "slot"]
+    assert sorted(e["tid"] for e in spans) == [0, 1]
+
+
+def test_export_ring_drop_metadata():
+    tr = Tracer(capacity=4)
+    for i in range(10):
+        tr.emit("tick", ("sched", 0), tid=i)
+    other = export_chrome_trace(tr)["otherData"]
+    assert other["events_dropped"] == 6
+    assert other["dropped_events"] == 6
+    assert other["events_emitted"] == 10
+
+
+def _trace_report(*args):
+    return subprocess.run([sys.executable, str(TOOL), *map(str, args)],
+                          capture_output=True, text=True, timeout=60)
+
+
+def test_trace_report_flags_truncated_trace(tmp_path):
+    tr = Tracer(capacity=4)
+    for i in range(10):
+        tr.emit("tick", ("sched", 0), tid=i)
+    path = tmp_path / "truncated.json"
+    export_chrome_trace(tr, path=str(path))
+    out = _trace_report(path)
+    assert out.returncode == 0, out.stderr
+    assert "WARNING" in out.stdout and "dropped 6" in out.stdout
+    js = _trace_report(path, "--json")
+    assert js.returncode == 0, js.stderr
+    parsed = json.loads(js.stdout)[str(path)]
+    assert parsed["truncated"] is True
+    assert parsed["dropped_events"] == 6
+    tr2 = Tracer()
+    tr2.emit("tick", ("sched", 0))
+    p2 = tmp_path / "clean.json"
+    export_chrome_trace(tr2, path=str(p2))
+    out2 = _trace_report(p2)
+    assert out2.returncode == 0 and "WARNING" not in out2.stdout
+
+
+# -- zero-wall rates ----------------------------------------------------------
+
+def test_safe_rate_zero_and_nonfinite_wall():
+    assert safe_rate(10, 0.0) == 0.0
+    assert safe_rate(10, -1.0) == 0.0
+    assert safe_rate(10, float("inf")) == 0.0
+    assert safe_rate(10, float("nan")) == 0.0
+    assert safe_rate(10, None) == 0.0
+    assert safe_rate(10, 4.0) == 2.5
+
+
+def test_serving_report_zero_wall_rate():
+    """An instant serving window reports 0.0 tokens/s, and an engine whose
+    backend carries no tracer reports the trace section disabled."""
+    from repro_torch.serving.engine import ServingEngine
+
+    class _Backend:
+        shell = SimpleNamespace(devices=[torch.device("cpu")])
+
+        def submit(self, task):  # never called in this test
+            raise AssertionError
+
+    eng = ServingEngine(_Backend())
+    eng.stats.t_first_submit = eng.stats.t_last_done = 123.0
+    eng.stats.tokens_out = 50
+    rep = eng.report()
+    assert rep["tokens_per_s"] == 0.0
+    assert rep["trace"] == {"enabled": False}
+
+
+def test_scheduler_report_zero_wall_rate():
+    shell = Shell(n_regions=1, devices=["cpu"], prefetch=False)
+    try:
+        rep = Scheduler(shell).report()
+        assert rep["throughput_tps"] == 0.0
+    finally:
+        shell.shutdown()
+
+
+# -- one region, event for event against the reference ------------------------
+
+def _ref_on_chunk(region, hook):
+    """``hook(region, task)`` after each retired chunk of a reference
+    region: its worker checks for failure at the top of every chunk-loop
+    iteration, right after the chunk it retired."""
+    check = region._check_failure
+    seen = [region.stats.chunks]
+
+    def wrapped():
+        check()
+        task = region.current_task
+        if task is not None and region.stats.chunks > seen[0]:
+            seen[0] = region.stats.chunks
+            hook(region, task)
+
+    region._check_failure = wrapped
+
+
+REF = SimpleNamespace(
+    obs=R_obs, Shell=R_shell.Shell, Scheduler=R_scheduler.Scheduler,
+    SchedulerConfig=R_scheduler.SchedulerConfig, Task=R_task.Task,
+    get_kernel=R_kernels.get_kernel, on_chunk=_ref_on_chunk,
+    shell_kw=lambda engine: {"pipeline": engine == "pipelined"})
+PORT = SimpleNamespace(
+    obs=P_obs, Shell=P_shell.Shell, Scheduler=P_scheduler.Scheduler,
+    SchedulerConfig=P_scheduler.SchedulerConfig, Task=P_task.Task,
+    get_kernel=P_kernels.get_kernel,
+    on_chunk=lambda region, hook: setattr(region, "on_chunk", hook),
+    shell_kw=lambda engine: {"engine": engine, "devices": ["cpu"]})
+
+# counters whose value is a count (the rest are seconds)
+_COUNT_COUNTERS = ("tasks_submitted_total", "dispatches_total",
+                   "tasks_done_total", "reconfigs_total",
+                   "preempt_requests_total", "preemptions_total",
+                   "kernels_run_total")
+
+
+def _one_region_run(side, engine, boundary):
+    """Two priority-4 tasks on one region; the first is preempted at its
+    ``boundary``-th chunk boundary, requeued and finished.  Returns
+    (events by (track, tid), kind counts, counters, histogram counts,
+    series, chunk count, results)."""
+    rng = np.random.default_rng(4)
+    tracer, reg = side.obs.Tracer(), side.obs.MetricsRegistry()
+    shell = side.Shell(n_regions=1, chunk_budget=1, prefetch=False,
+                       tracer=tracer, metrics=reg, **side.shell_kw(engine))
+    fired = []
+
+    def hook(region, task):
+        if task.tid == tasks[0].tid and not fired \
+                and region.stats.chunks >= boundary:
+            fired.append(task.tid)
+            region.request_preempt()
+
+    try:
+        side.on_chunk(shell.regions[0], hook)
+        tasks = []
+        for kernel, iters in (("MedianBlur", 2), ("GaussianBlur", 1)):
+            img = make_image(rng, 128)
+            kd = side.get_kernel(kernel)
+            tasks.append(side.Task(kernel=kernel, priority=4,
+                                   args=kd.bundle(img, np.zeros_like(img),
+                                                  H=128, W=128,
+                                                  iters=iters)))
+        rep = side.Scheduler(shell, side.SchedulerConfig()).run(tasks,
+                                                                quiet=True)
+        chunks = shell.regions[0].stats.chunks
+    finally:
+        shell.shutdown()
+    assert rep["n_done"] == 2 and fired
+    base = {t.tid: i for i, t in enumerate(tasks)}
+    by = {}
+    for e in sorted(tracer.events(), key=lambda e: e.t):
+        key = (e.track, base.get(e.tid))
+        by.setdefault(key, []).append(e.kind)
+    kinds = {}
+    for e in tracer.events():
+        kinds[e.kind] = kinds.get(e.kind, 0) + 1
+    counters, hists, series = {}, {}, set()
+    for kind, name, labels, inst in reg.series():
+        if name == "task_slowdown_ratio":
+            labels = {}  # its size class is a task's wall time: it differs
+        key = (name, tuple(sorted(labels.items())))
+        series.add((kind,) + key)
+        if kind == "counter" and name in _COUNT_COUNTERS:
+            counters[key] = inst.value
+        elif kind == "histogram":
+            hists[key] = hists.get(key, 0) + inst.n
+    return {"events": by, "kinds": kinds, "counters": counters,
+            "hists": hists, "series": series, "chunks": chunks,
+            "n_preemptions": rep["preemptions"],
+            "results": [tuple(np.asarray(b) for b in t.result)
+                        for t in tasks]}
+
+
+@pytest.mark.parametrize("engine", ["sync", "pipelined"])
+@pytest.mark.parametrize("boundary", [1, 3])
+def test_traced_run_matches_reference_event_for_event(engine, boundary):
+    ref = _one_region_run(REF, engine, boundary)
+    port = _one_region_run(PORT, engine, boundary)
+    assert port["n_preemptions"] == ref["n_preemptions"] == 1
+    assert port["chunks"] == ref["chunks"]
+    assert port["kinds"] == ref["kinds"]
+    assert port["events"] == ref["events"]
+    assert port["series"] == ref["series"]
+    assert port["counters"] == ref["counters"]
+    assert port["hists"] == ref["hists"]
+    assert port["kinds"]["chunk"] == port["chunks"]
+    for got, want in zip(port["results"], ref["results"]):
+        np.testing.assert_array_equal(got[0], want[0])
+
+
+# -- the traced bursty two-region run -----------------------------------------
+
+def _bursty_run(tracer):
+    """Two regions with a chunk budget of one row block; four priority-4
+    MedianBlur tasks, then, once both regions have retired a chunk of
+    theirs, a priority-0 task (submitted from ``on_chunk``, which holds
+    both workers until the scheduler has asked for the preemption).
+    Returns (report, tasks, summed stats.chunks)."""
+    rng = np.random.default_rng(11)
+    shell = Shell(n_regions=2, devices=["cpu"], chunk_budget=1,
+                  engine="pipelined", tracer=tracer)
+    sched = Scheduler(shell, SchedulerConfig(policy="fcfs"))
+    bg = [_blur_task(rng, iters=2, priority=4) for _ in range(4)]
+    urgent = _blur_task(rng, iters=1, priority=0)
+    both = threading.Barrier(2, timeout=TIMEOUT)
+    requested = threading.Event()
+    arrived, handles = set(), []
+
+    def on_chunk(region, task):
+        if region.rid in arrived:
+            return
+        arrived.add(region.rid)
+        if both.wait() == 0:
+            handles.append(sched.submit(urgent))
+        requested.wait(TIMEOUT)
+
+    for r in shell.regions:
+        r.on_chunk = on_chunk
+        ask = r.request_preempt
+
+        def request_preempt(ask=ask):
+            ask()
+            requested.set()
+
+        r.request_preempt = request_preempt
+    server = threading.Thread(target=sched.run_forever, daemon=True)
+    server.start()
+    assert sched.wait_until_serving(10.0)
+    try:
+        handles += [sched.submit(t) for t in bg]
+        assert requested.wait(TIMEOUT), "the urgent task preempted nothing"
+        for h in handles:
+            h.result(timeout=TIMEOUT)
+        rep = sched.drain(timeout=TIMEOUT)
+        chunks = sum(r.stats.chunks for r in shell.regions)
+    finally:
+        shell.shutdown()
+    return rep, bg + [urgent], chunks
+
+
+@pytest.fixture(scope="module")
+def bursty():
+    tracer = Tracer()
+    rep, tasks, chunks = _bursty_run(tracer)
+    plain_rep, plain_tasks, _ = _bursty_run(None)
+    return SimpleNamespace(tracer=tracer, rep=rep, tasks=tasks,
+                           chunks=chunks, plain_rep=plain_rep,
+                           plain_tasks=plain_tasks)
+
+
+def test_bursty_two_region_trace(bursty, tmp_path):
+    tracer, rep = bursty.tracer, bursty.rep
+    evs = tracer.events()
+    kinds = {e.kind for e in evs}
+    assert {"submit", "queue", "dispatch", "reconfig", "icap", "run",
+            "chunk", "preempt_request", "preempt_honored", "done"} <= kinds
+    assert tracer.dropped == 0
+    # every retired chunk is one chunk event, on its region's track
+    assert sum(e.kind == "chunk" for e in evs) == bursty.chunks
+    assert all(e.track[0] == "region" and e.dur > 0.0
+               for e in evs if e.kind == "chunk")
+
+    path = tmp_path / "bursty.json"
+    export_chrome_trace(tracer, path=str(path))
+    trace = json.loads(path.read_text())
+    thread_names = {e["args"]["name"] for e in trace["traceEvents"]
+                    if e["ph"] == "M" and e["name"] == "thread_name"}
+    assert {"region 0", "region 1", "icap 0"} <= thread_names
+
+    t = rep["trace"]
+    assert t["enabled"] and t["emitted"] == tracer.n_emitted
+    assert t["per_task"]["n_tasks"] == 5
+    for phase in ("queue_wait_s", "run_s", "turnaround_s"):
+        assert t["per_task"]["phases"][phase]["n"] == 5
+    assert t["preempt_response"]["n"] >= 1
+    assert t["preempt_response"]["max_s"] > 0.0
+    assert set(t["regions"]) == {"0", "1"}
+    for r in t["regions"].values():
+        assert 0.0 <= r["occupancy"] <= 1.0
+    assert rep["preemptions"] >= 1
+    assert bursty.plain_rep["trace"] == {"enabled": False}
+
+
+def test_bursty_outputs_equal_untraced_run(bursty):
+    """The tracer changes no output: every task's (ping, pong) equals the
+    untraced run's bitwise, and the plain PyTorch blur's.  (How many
+    regions the urgent arrival preempts is the scheduler's race, as in the
+    reference: a second serve pass before the first victim honours its
+    request picks the other region too.)"""
+    assert bursty.plain_rep["preemptions"] >= 1
+    for traced, plain in zip(bursty.tasks, bursty.plain_tasks):
+        for a, b in zip(traced.result, plain.result):
+            np.testing.assert_array_equal(a, b)
+        iters = int(traced.args.ints[2])
+        kind = "median" if traced.kernel == "MedianBlur" else "gaussian"
+        want = iterated_blur_ref(torch.from_numpy(
+            np.asarray(traced.args.bufs[0])), iters, kind).numpy()
+        np.testing.assert_array_equal(traced.result[iters % 2], want)
+
+
+def test_trace_report_cli(bursty, tmp_path):
+    p1 = tmp_path / "a.json"
+    export_chrome_trace(bursty.tracer, path=str(p1))
+    out = _trace_report(p1)
+    assert out.returncode == 0, out.stderr
+    assert "events by kind" in out.stdout
+    assert "dispatch" in out.stdout
+    diff = _trace_report(p1, p1, "--json")
+    assert diff.returncode == 0, diff.stderr
+    parsed = json.loads(diff.stdout)
+    assert str(p1) in parsed
