@@ -7,10 +7,10 @@ card.  Run from the repository root:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: name and power limit (``nvidia-smi``);
-2. build: ``nvcc`` builds every ``src/repro_torch/csrc/*.cu`` (blur, flash
-   attention, decode attention, RG-LRU scan, RWKV-6) for ``sm_90a``, one
-   process per source, all at once, and prints each kernel's register and
-   spill lines;
+2. build: ``nvcc`` builds every ``src/repro_torch/csrc/*.cu`` (blur with
+   the persistent M1, the preempt flag, flash attention, decode attention,
+   RG-LRU scan, RWKV-6) for ``sm_90a``, one process per source, all at
+   once, and prints each kernel's register and spill lines;
 3. kernel vs plain version on the card: median (bitwise) and gaussian
    (max abs difference <= 1e-6) on runs of 1, 7 and 8 row blocks at width
    4096 and one block at widths 128, 130 and 129 (``BLUR_CHECKS``), then a
@@ -75,7 +75,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    traced runs, alternated, the emit cost of the tracer, and the card's
    busy share over the same workload under ``torch.profiler`` (the union
    of its kernel and copy intervals from the first submission to the last
-   result);
+   result) and how long uploads and result copies ran at once;
+5e. the megakernel engine (``[mega]``) and M1, the persistent blur kernel
+   (one cooperative launch per task that polls the region's mapped preempt
+   flag at every chunk boundary): (1) M1 against its plain version on the
+   card (the host loop through ``make_pipelined_chunk`` with B1), both
+   kinds, sizes 30 (padded to 128), 256 and 4096, budgets 1, 2 and 8, a
+   whole 3-iteration task in one launch; the flag at every boundary of the
+   small task (boundary 1 of every launch, then each boundary of a fresh
+   launch and its resume) and at random boundaries of a 4096^2 task,
+   resuming each time: after every exit the context words and chunk count
+   equal, the images bitwise (median) or within 1e-6 (gaussian), the row
+   blocks and the progress word exact; (2) a host ``request_preempt()``
+   30 % into a 4096^2 task of 12 iterations at budget 1: the launch exits
+   on the flag at most 2 chunks after the boundary the device had
+   published when the write was done (its progress word, read right
+   after the write), the host sees the exit within one chunk + its
+   1 ms poll sleep + 2 ms of wake slack, and the resumed task equals the
+   plain version; (3) ``inject_failure()`` mid-flight: the launch pops as
+   promptly and the task recovers on the other region, bitwise; (4) the
+   main path's workload (4, no slowdown) through
+   ``Client(n_regions=2, engine="megakernel")``, the priority-0 arrival
+   placed at the background launches, preempting through the flag: images
+   equal the plain version, row blocks exact, M1 launched and B1 never,
+   ``megakernel_launches`` and ``flag_poll_exits`` nonzero; then 3
+   megakernel and 3 pipelined runs alternated (medians and ranges of wall
+   time, host time per task and urgent service), and one more megakernel
+   run under ``torch.profiler``: the card's busy share and how long
+   uploads and result copies ran at once (5d prints both for the
+   pipelined engine); (5) M1's device time per
+   chunk and per task (``torch.profiler``, by kernel name; else queued
+   behind a spin kernel), each kind timed twice, beside B1's 8-block run,
+   the bound and the plain version, with the grid and its cap, and two
+   regions' launches on two streams at once against one alone (less than
+   1.75x, where one after the other takes 2x);
 6. flash check: the flash-attention kernel against its plain version at the
    serving prefill shape (q [4, 32, 16, 128], k/v [4, 8, 128, 128] strided
    as the prefill passes them), q_offset 0 / 64 / 112, then at the edges of
@@ -216,8 +249,34 @@ OPS_PER_PIXEL = {"median": 24, "gaussian": 17}
 REPLACES = {"median": "src/repro/kernels/blur/kernel.py:44",
             "gaussian": "src/repro/kernels/blur/kernel.py:50"}
 TIMEOUT_S = 300
-LIBRARIES = ("blur", "flash_attention", "decode_attention", "rglru_scan",
-             "rwkv6")
+# [mega]: M1 against its plain version at these sizes (30 pads to 128) and
+# budgets, 3 iterations; the flag at every boundary of the small task at
+# budget 2 and at random boundaries 1..12 of a 4096^2 task at budget 8
+MEGA_SIZES = (30, 256, 4096)
+MEGA_BUDGETS = (1, 2, 8)
+MEGA_ITERS = 3
+MEGA_SMALL_BUDGET = 2
+MEGA_RANDOM_MAX = 12
+# the mid-flight request and failure: a 4096^2 task of 12 iterations at
+# budget 1 (1536 chunks), hit this far into a launch
+MEGA_RESPONSE_ITERS = 12
+MEGA_REQUEST_AT = 0.3
+# the response bound on the host's clock: one chunk's device time, the
+# host's longest poll sleep (region._POLL_MAX_S) and the time a shared
+# host takes to wake that sleep and read the launch's result
+MEGA_WAKE_SLACK_S = 2e-3
+# chunks from the host's flag write to the launch's exit, counted on the
+# progress word read right after the write: 0 when the launch has already
+# exited by then, 1 for the chunk in flight, 2 when the progress word
+# itself is a boundary behind (a read crossing the PCIe write of the last)
+MEGA_LATE_CHUNKS = 2
+MEGA_AB = ("pipelined", "megakernel", "megakernel", "pipelined",
+           "pipelined", "megakernel")
+MEGA_SIDE_REPS = 5
+MEGA_SIDE_MAX = 1.75   # two launches one after the other take about 2x
+REPLACES_MEGA = "src/repro/core/preemption.py:174"
+LIBRARIES = ("blur", "preempt_flag", "flash_attention", "decode_attention",
+             "rglru_scan", "rwkv6")
 
 # the attention LM at Qwen3-8B's attention widths (src/repro/configs/qwen3_8b.py)
 SERVING = {"lm": "attention", "d_model": 4096, "vocab_size": 151936,
@@ -376,17 +435,22 @@ def check(kind: str, got, want) -> float:
 
 
 def serve(imgs, slowdown_s: float, tracer=None, metrics=None,
-          window: Optional[str] = None):
-    """The main path: ``repro_torch.Client(n_regions=2)`` on cuda:0, two
-    priority-4 MedianBlur tasks, then — once both have retired a chunk — a
-    priority-0 GaussianBlur.  The launch and row-block counters are zeroed
-    just before and read just after.  With ``metrics``, a
-    ``TelemetryMonitor`` attached to the scheduler samples every
-    ``MONITOR_INTERVAL_S`` while the tasks run.  With ``window``, the span
-    from the first submission to the last result is a ``torch.profiler``
-    range of that name.  Returns (background tasks,
-    urgent task, report, wall seconds, ({body: row blocks}, {body:
-    launches}))."""
+          window: Optional[str] = None, engine: str = "pipelined"):
+    """The main path: ``repro_torch.Client(n_regions=2, engine=engine)`` on
+    cuda:0, two priority-4 MedianBlur tasks, then — once both have retired
+    a chunk — a priority-0 GaussianBlur.  In megakernel mode a launch runs
+    its chunks without the host, so the arrival is placed at the launches
+    instead: each background task's worker waits just before its launch
+    until both have got there, the urgent task is submitted, and the
+    scheduler has asked a region to yield (its flag reads nonzero); the
+    victim's launch then exits on the flag at its first chunk boundary.
+    The launch and row-block counters are zeroed just before and read just
+    after.  With ``metrics``, a ``TelemetryMonitor`` attached to the
+    scheduler samples every ``MONITOR_INTERVAL_S`` while the tasks run.
+    With ``window``, the span from the first submission to the last result
+    is a ``torch.profiler`` range of that name.  Returns (background tasks,
+    urgent task, report, wall seconds, ({body: row blocks}, {body: B1
+    launches}, {body: M1 launches}))."""
     import contextlib
 
     from torch.profiler import record_function
@@ -397,6 +461,7 @@ def serve(imgs, slowdown_s: float, tracer=None, metrics=None,
     tasks = [_blur_task("MedianBlur", imgs[i], BG_ITERS, 4) for i in (0, 1)]
     urgent = _blur_task("GaussianBlur", imgs[2], URGENT_ITERS, 0)
     started, both_started = set(), threading.Event()
+    release = threading.Event()  # megakernel: the launches may go
     lock = threading.Lock()
 
     def on_chunk(region, t):
@@ -405,12 +470,20 @@ def serve(imgs, slowdown_s: float, tracer=None, metrics=None,
             if all(b.tid in started for b in tasks):
                 both_started.set()
 
-    client = repro_torch.Client(n_regions=2, tracer=tracer, metrics=metrics)
+    def on_launch(region, t):
+        if release.is_set() or all(t is not b for b in tasks):
+            return
+        on_chunk(region, t)
+        release.wait(TIMEOUT_S)
+
+    client = repro_torch.Client(n_regions=2, tracer=tracer, metrics=metrics,
+                                engine=engine)
     monitor = None
     try:
         for r in client.shell.regions:
             r.slowdown_s = slowdown_s
             r.on_chunk = on_chunk
+            r.on_launch = on_launch
         if metrics is not None:
             monitor = TelemetryMonitor(
                 metrics, interval_s=MONITOR_INTERVAL_S).attach(
@@ -425,6 +498,13 @@ def serve(imgs, slowdown_s: float, tracer=None, metrics=None,
                 raise AssertionError("background tasks never retired a "
                                      "chunk")
             handles.append(client.submit(urgent))
+            if engine == "megakernel":
+                asked = _wait(lambda: any(r.flag.read()
+                                          for r in client.shell.regions))
+                release.set()
+                if not asked:
+                    raise AssertionError("the urgent task asked no region "
+                                         "to yield")
             for h in handles:
                 h.result(timeout=TIMEOUT_S)
             wall_s = time.perf_counter() - t0
@@ -434,10 +514,20 @@ def serve(imgs, slowdown_s: float, tracer=None, metrics=None,
             monitor.sample()
         rep = client.drain(TIMEOUT_S)
     finally:
+        release.set()
         if monitor is not None:
             monitor.stop()
         client.shutdown()
     return tasks, urgent, rep, wall_s, counts
+
+
+def _wait(cond, timeout: float = TIMEOUT_S) -> bool:
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > deadline:
+            return False
+        time.sleep(1e-4)
+    return True
 
 
 def log_serve(tag: str, tasks, urgent, rep, wall_s: float, slowdown_s: float):
@@ -492,8 +582,8 @@ def _check_result(task, img, iters: int, dev) -> float:
 def _counts():
     from repro_torch.kernels.blur import kernel as K
 
-    return ({k: K.ROW_BLOCKS[k] for k in ("median", "gaussian")},
-            {k: K.LAUNCHES[k] for k in ("median", "gaussian")})
+    return tuple({k: c[k] for k in ("median", "gaussian")}
+                 for c in (K.ROW_BLOCKS, K.LAUNCHES, K.MEGA_LAUNCHES))
 
 
 def _reset_counts():
@@ -501,6 +591,7 @@ def _reset_counts():
 
     K.LAUNCHES.reset()
     K.ROW_BLOCKS.reset()
+    K.MEGA_LAUNCHES.reset()
 
 
 def _want_blocks(specs) -> dict:
@@ -516,7 +607,7 @@ def _want_blocks(specs) -> dict:
 
 
 def _require_counts(tag: str, want: dict):
-    blocks, launches = _counts()
+    blocks, launches, _ = _counts()
     log(f"[{tag}] row blocks {blocks} (expected exactly {want}); launches "
         f"{launches}")
     if blocks != want:
@@ -797,10 +888,22 @@ def overhead_phase(rng_seed: int, dev) -> dict:
     return out
 
 
+def _merged(intervals) -> list:
+    """Sorted, disjoint union of (start, end) intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
 def _busy_share(prof_json: str, window: str) -> dict:
     """The card's busy share in a ``torch.profiler`` Chrome trace: the
     union of its kernel, copy and memset intervals inside the host range
-    annotated ``window``, over that range."""
+    annotated ``window``, over that range; and how long host-to-device
+    and device-to-host copies ran at the same time."""
     with open(prof_json) as f:
         events = json.load(f)["traceEvents"]
     span = next(e for e in events
@@ -813,13 +916,18 @@ def _busy_share(prof_json: str, window: str) -> dict:
             a, b = max(e["ts"], lo), min(e["ts"] + e["dur"], hi)
             if b > a:
                 found[e["cat"]].append((a, b))
-    busy, end = 0.0, lo
-    for a, b in sorted(x for xs in found.values() for x in xs):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = sum(b - a for a, b in _merged(x for xs in found.values()
+                                         for x in xs))
+    ways = {d: _merged((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
+                       for e in events
+                       if e.get("cat") == "gpu_memcpy" and "dur" in e
+                       and d in e.get("name", ""))
+            for d in ("HtoD", "DtoH")}
+    overlap = sum(max(0.0, min(b, d) - max(a, c))
+                  for a, b in ways["HtoD"] for c, d in ways["DtoH"])
     return {"window_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3,
             "busy_share": busy / (hi - lo),
+            "copy_overlap_ms": overlap / 1e3,
             **{f"{k}_n": len(v) for k, v in found.items()},
             **{f"{k}_ms": sum(b - a for a, b in v) / 1e3
                for k, v in found.items()}}
@@ -863,7 +971,7 @@ def trace_phase(imgs, dev) -> dict:
     from repro_torch.obs import MetricsRegistry, Tracer, export_chrome_trace
 
     tracer, reg = Tracer(), MetricsRegistry()
-    tasks, urgent, rep, wall_s, (blocks, launches) = serve(
+    tasks, urgent, rep, wall_s, (blocks, launches, _) = serve(
         imgs, 0.0, tracer=tracer, metrics=reg)
     want = _want_blocks([("MedianBlur", BG_ITERS), ("MedianBlur", BG_ITERS),
                          ("GaussianBlur", URGENT_ITERS)])
@@ -969,11 +1077,496 @@ def trace_phase(imgs, dev) -> dict:
         f"window, busy share {share['busy_share']:.4f}; kernels "
         f"{share['kernel_n']} ({share['kernel_ms']:.3f} ms), copies "
         f"{share['gpu_memcpy_n']} ({share['gpu_memcpy_ms']:.3f} ms), memsets "
-        f"{share['gpu_memset_n']} ({share['gpu_memset_ms']:.3f} ms)")
+        f"{share['gpu_memset_n']} ({share['gpu_memset_ms']:.3f} ms); uploads "
+        f"and result copies at once {share['copy_overlap_ms']:.3f} ms")
     return {"occupancy": {rid: r["occupancy"]
                           for rid, r in t["regions"].items()},
             "busy_share": share["busy_share"], "emit_us": emit_us,
             "medians": {str(k): v for k, v in med.items()}}
+
+
+def _mega_images(dev, img):
+    """The same padded image twice on the card: (M1's, plain's) ping/pong
+    pairs."""
+    import torch
+
+    a = (torch.tensor(img, device=dev), torch.zeros(img.shape, device=dev))
+    return a, tuple(x.clone() for x in a)
+
+
+def _mega_step(kind, mine, plain, ctx, iters, budget, flag, boundary):
+    """One launch of M1 and one of its plain version (the host loop
+    through ``make_pipelined_chunk`` with B1, ``make_megakernel`` on the
+    CPU's path) from ``ctx``, the flag at ``boundary``.  The context
+    words, chunk counts and row blocks must be equal, the images bitwise
+    (median) or within 1e-6 (gaussian).  Returns (context after, max abs
+    error, M1's row blocks, M1's grid)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.controller.kernels import get_kernel
+    from repro_torch.core.preemption import make_megakernel
+    from repro_torch.kernels.blur import kernel as K
+    from repro_torch.kernels.blur.tasks import KERNELS, task_ints
+
+    flag.write(boundary)
+    before = K.ROW_BLOCKS[kind]
+    launch = K.blur_mega(ctx.to_words(), *mine, kind, iters, budget, flag)
+    words, n = launch.result()
+    rows = K.ROW_BLOCKS[kind] - before
+    if flag.progress() != n:
+        raise AssertionError(f"[mega] the progress word reads "
+                             f"{flag.progress()} after {n} chunks")
+    h, w = mine[0].shape[0] - 2, mine[0].shape[1] - 2
+    want, _, want_n = make_megakernel(get_kernel(KERNELS[kind]))(
+        ctx, plain, task_ints(h, w, iters), None, budget, flag).result()
+    torch.cuda.synchronize()
+    flag.clear()
+    plain_rows = K.ROW_BLOCKS[kind] - before - rows
+    if (n != want_n or not np.array_equal(words, want.to_words())
+            or rows != plain_rows):
+        raise AssertionError(
+            f"[mega] {kind} [{h + 2}, {w + 2}] budget {budget} flag "
+            f"{boundary}: M1 ran {n} chunks, {rows} row blocks, context "
+            f"{words.tolist()}; the plain version {want_n}, {plain_rows}, "
+            f"{want.to_words().tolist()}")
+    err = max(check(kind, a, b) for a, b in zip(mine, plain))
+    return want, err, rows, launch.grid
+
+
+def _named_ms(fn, name: str, per_call: int, reps: int = 3,
+              attempts: int = 3) -> float:
+    """Device time of the kernels whose name holds ``name`` in one
+    ``fn()``, in ms, under ``torch.profiler`` after a warm-up: the window
+    must hold ``per_call`` of them a call, else it is profiled again (up
+    to ``attempts`` times); 0.0 if no window was whole."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [v for k, v in _by_kernel(prof).items() if name in k]
+        if sum(n for _, n in hits) >= per_call * reps:
+            return sum(ms for ms, _ in hits) / reps
+    return 0.0
+
+
+def _drive_region(shell, task):
+    """Run one task on region 0 of a shell directly, to its end."""
+    from repro_torch.core.interrupts import EventKind
+
+    region = shell.regions[0]
+    region.enqueue_reconfig(task)
+    region.enqueue_launch(task)
+    deadline = time.perf_counter() + TIMEOUT_S
+    while True:
+        ev = shell.interrupts.wait(0.05)
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"[mega] stuck: {task}")
+        if ev is None or ev.kind in (EventKind.RECONFIG_DONE,
+                                     EventKind.HEARTBEAT):
+            continue
+        if ev.kind is not EventKind.TASK_DONE:
+            raise AssertionError(f"[mega] {ev.kind.name} before the end of "
+                                 f"{task}")
+        return
+
+
+def mega_phase(rng, dev, imgs, b1_ms: dict) -> list:
+    """5e. The megakernel engine and M1, the persistent blur kernel: M1
+    against its plain version (every size, budget and kind; the flag at
+    every boundary of a small task and at random ones of a 4096^2 task);
+    a host ``request_preempt()`` and an ``inject_failure()`` mid-flight;
+    the main path in megakernel mode, then 3 megakernel against 3
+    pipelined runs; M1's device time per chunk and per task beside B1's
+    and the bound, its grid and cap, and two regions' launches side by
+    side.  Returns M1's kernel records."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch
+    from repro_torch.controller.kernels import get_kernel
+    from repro_torch.core.context import ContextRecord
+    from repro_torch.core.preemption import PreemptFlag, make_megakernel
+    from repro_torch.core.region import _POLL_MAX_S
+    from repro_torch.core.shell import Shell
+    from repro_torch.kernels.blur import kernel as K
+    from repro_torch.kernels.blur.tasks import (KERNELS, ROW_BLOCK,
+                                                make_image, result_image,
+                                                task_ints)
+    from repro_torch.obs import Tracer, derive_metrics
+
+    flag = PreemptFlag(dev)
+    errs = {"median": 0.0, "gaussian": 0.0}
+
+    # 5e.1 M1 against its plain version ------------------------------------
+    n_checks = 0
+    for kind in ("median", "gaussian"):
+        for size in MEGA_SIZES:
+            img = make_image(rng, size)
+            n_rb = (img.shape[0] - 2) // ROW_BLOCK
+            for budget in MEGA_BUDGETS:
+                mine, plain = _mega_images(dev, img)
+                ctx, err, rows, grid = _mega_step(
+                    kind, mine, plain, ContextRecord.fresh(), MEGA_ITERS,
+                    budget, flag, 0)
+                errs[kind] = max(errs[kind], err)
+                n_checks += 1
+                if ctx.done != 1 or rows != MEGA_ITERS * n_rb:
+                    raise AssertionError(
+                        f"[mega] {kind} {size} budget {budget}: done "
+                        f"{ctx.done}, {rows} row blocks, expected "
+                        f"{MEGA_ITERS * n_rb}")
+            log(f"[mega] {kind} {img.shape}: a whole {MEGA_ITERS}-iteration "
+                f"task in one launch at budgets {MEGA_BUDGETS} equals the "
+                f"plain version (context words, chunks, {MEGA_ITERS * n_rb} "
+                f"row blocks; max_abs_err {errs[kind]:.3e}); grid "
+                f"{grid} at budget {MEGA_BUDGETS[-1]}")
+        # the flag at every boundary of a small task: boundary 1 of every
+        # launch, then each boundary k of a fresh launch and its resume
+        img = make_image(rng, MEGA_SIZES[0])
+        mine, plain = _mega_images(dev, img)
+        ctx, exits = ContextRecord.fresh(), 0
+        while True:
+            ctx, err, _, _ = _mega_step(kind, mine, plain, ctx, MEGA_ITERS,
+                                        MEGA_SMALL_BUDGET, flag, 1)
+            errs[kind] = max(errs[kind], err)
+            n_checks += 1
+            if ctx.done:
+                break
+            exits += 1
+        for k in range(1, exits + 1):
+            mine, plain = _mega_images(dev, img)
+            ctx = ContextRecord.fresh()
+            for boundary in (k, 0):
+                ctx, err, _, _ = _mega_step(kind, mine, plain, ctx,
+                                            MEGA_ITERS, MEGA_SMALL_BUDGET,
+                                            flag, boundary)
+                errs[kind] = max(errs[kind], err)
+                n_checks += 1
+            if ctx.done != 1:
+                raise AssertionError(f"[mega] resume after boundary {k} "
+                                     f"did not finish")
+        # random boundaries of a 4096^2 task, resuming each time
+        img = make_image(rng, SIZE)
+        mine, plain = _mega_images(dev, img)
+        ctx, arms = ContextRecord.fresh(), []
+        while ctx.done == 0:
+            arms.append(int(rng.integers(1, MEGA_RANDOM_MAX + 1)))
+            ctx, err, _, _ = _mega_step(kind, mine, plain, ctx, MEGA_ITERS,
+                                        RUN_BLOCKS, flag, arms[-1])
+            errs[kind] = max(errs[kind], err)
+            n_checks += 1
+        del mine, plain
+        log(f"[mega] {kind}: flag at each of the {exits + 1} boundaries of "
+            f"a {MEGA_SIZES[0]}-pixel task (budget {MEGA_SMALL_BUDGET}) and "
+            f"at random boundaries {arms} of a {SIZE}^2 task (budget "
+            f"{RUN_BLOCKS}), resumed each time: equal after every exit")
+    log(f"[mega] M1 against its plain version: {n_checks} launches, all "
+        f"equal; max_abs_err {errs}")
+
+    # 5e.2 a host request_preempt() mid-flight -------------------------------
+    kd = get_kernel("MedianBlur")
+
+    def big_task():
+        from repro_torch.core.task import Task
+
+        img = imgs[0]
+        return Task(kernel="MedianBlur", args=kd.bundle(
+            img, np.zeros_like(img), H=SIZE, W=SIZE,
+            iters=MEGA_RESPONSE_ITERS))
+
+    tracer = Tracer()
+    shell = Shell(n_regions=1, chunk_budget=1, engine="megakernel",
+                  prefetch=False, tracer=tracer)
+    launched = threading.Event()
+    try:
+        region = shell.regions[0]
+        calib = big_task()
+        _drive_region(shell, calib)
+        n_task = region.stats.chunks
+        per_chunk_s = calib.run_s / n_task
+        region.on_launch = lambda r, t: launched.set()
+        tracer.clear()
+        task = big_task()
+        region.enqueue_reconfig(task)
+        region.enqueue_launch(task)
+        if not launched.wait(TIMEOUT_S):
+            raise AssertionError("[mega] the launch never started")
+        region.on_launch = None
+        time.sleep(MEGA_REQUEST_AT * calib.run_s)
+        region.request_preempt()
+        t_req = time.perf_counter()
+        # the chunks the device had published once the flag was written
+        done_at_request = region.flag.progress()
+        if not _wait(lambda: task.status.name in ("PREEMPTED", "DONE")):
+            raise AssertionError("[mega] the preempted launch never ended")
+        region.cancel_preempt()
+        if task.status.name == "PREEMPTED":
+            region.enqueue_reconfig(task)
+            region.enqueue_launch(task)
+        if not _wait(lambda: task.status.name == "DONE"):
+            raise AssertionError("[mega] the resumed task never finished")
+    finally:
+        shell.shutdown()
+    launches = [e for e in tracer.events() if e.kind == "mega_launch"]
+    exited = launches[0]
+    resp = derive_metrics(tracer.events())["preempt_response"]
+    exit_s = exited.t + exited.dur - t_req
+    # device time of one budget-1 chunk: the task's launch under the
+    # profiler over its chunks
+    mine, _ = _mega_images(dev, imgs[0])
+    fresh = ContextRecord.fresh().to_words()
+
+    def whole_task():
+        K.blur_mega(fresh, *mine, "median", MEGA_RESPONSE_ITERS, 1, flag)
+
+    task_ms = _named_ms(whole_task, "blur_mega", 1)
+    how = "torch.profiler"
+    if task_ms <= 0.0:
+        task_ms, how = queued_ms(whole_task, reps=5), "queued behind a spin"
+    chunk_dev_s = task_ms / 1e3 / n_task
+    bound_s = chunk_dev_s + _POLL_MAX_S + MEGA_WAKE_SLACK_S
+    late = exited.attrs["n_chunks"] - done_at_request
+    log(f"[mega] request_preempt() {MEGA_REQUEST_AT:.0%} into a {SIZE}^2 "
+        f"task of {MEGA_RESPONSE_ITERS} iterations at budget 1 ({n_task} "
+        f"chunks; a launch {calib.run_s * 1e3:.3f} ms host, "
+        f"{per_chunk_s * 1e6:.3f} us a chunk): the device had published "
+        f"{done_at_request} chunks right after the host wrote the flag and "
+        f"exited on it after {exited.attrs['n_chunks']} ({late} chunk(s) "
+        f"later; at most {MEGA_LATE_CHUNKS}), done "
+        f"{exited.attrs['done']}; request -> the host sees the flag exit "
+        f"{exit_s * 1e6:.3f} us, request -> commit (preempt_response, n "
+        f"{resp['n']}) {resp['max_s'] * 1e6:.3f} us; one chunk's device "
+        f"time {chunk_dev_s * 1e6:.3f} us ({how}: {task_ms:.6f} ms a task); "
+        f"bound one chunk + poll backoff {_POLL_MAX_S * 1e6:.0f} us + wake "
+        f"slack {MEGA_WAKE_SLACK_S * 1e6:.0f} us = {bound_s * 1e6:.3f} us")
+    if (exited.attrs["done"] != 0 or resp["n"] != 1
+            or not 0 <= late <= MEGA_LATE_CHUNKS
+            or not 0.0 < exit_s <= bound_s):
+        raise AssertionError(f"[mega] preempt response {exit_s:.6f} s "
+                             f"(bound {bound_s:.6f} s), {late} chunks after "
+                             f"the request, done {exited.attrs['done']}, "
+                             f"responses {resp['n']}")
+    check("median", torch.tensor(result_image(task, MEGA_RESPONSE_ITERS)),
+          _plain_image(imgs[0], MEGA_RESPONSE_ITERS, "MedianBlur", dev))
+    log("[mega] the preempted task resumed and equals the plain version")
+
+    # 5e.3 inject_failure() mid-flight ---------------------------------------
+    tracer = Tracer()
+    client = repro_torch.Client(n_regions=2, chunk_budget=1,
+                                engine="megakernel", tracer=tracer)
+    launched.clear()
+    first = []
+    try:
+        def on_launch(r, t):
+            if not first:
+                first.append(r)
+                launched.set()
+
+        for r in client.shell.regions:
+            r.on_launch = on_launch
+        task = big_task()
+        h = client.submit(task)
+        if not launched.wait(TIMEOUT_S):
+            raise AssertionError("[mega] the launch never started")
+        time.sleep(MEGA_REQUEST_AT * calib.run_s)
+        first[0].inject_failure()
+        t_inj = time.perf_counter()
+        done_at_failure = first[0].flag.progress()
+        h.result(timeout=TIMEOUT_S)
+        rep = client.report()
+        late = first[0].flag.progress() - done_at_failure
+    finally:
+        client.shutdown()
+    failed = [e for e in tracer.events() if e.kind == "region_failed"]
+    pop_s = failed[0].t - t_inj if failed else float("inf")
+    check("median", torch.tensor(result_image(task, MEGA_RESPONSE_ITERS)),
+          _plain_image(imgs[0], MEGA_RESPONSE_ITERS, "MedianBlur", dev))
+    log(f"[mega] inject_failure() on region {first[0].rid} mid-flight, "
+        f"{done_at_failure} chunks into the launch: it popped {late} "
+        f"chunk(s) later, and the host raised the failure "
+        f"{pop_s * 1e6:.3f} us after the injection (bound "
+        f"{bound_s * 1e6:.3f} us); the task recovered on regions "
+        f"{task.region_history} ({task.n_migrations} migration(s), "
+        f"megakernel_launches {rep['megakernel_launches']}) and equals the "
+        f"plain version")
+    if (not 0.0 < pop_s <= bound_s or not 0 <= late <= MEGA_LATE_CHUNKS
+            or len(set(task.region_history)) != 2):
+        raise AssertionError(f"[mega] failure popped in {pop_s:.6f} s "
+                             f"(bound {bound_s:.6f}), {late} chunks after "
+                             f"it; regions {task.region_history}")
+
+    # 5e.4 the main path in megakernel mode ----------------------------------
+    tasks, urgent, rep, wall_s, (blocks, b1, m1) = serve(
+        imgs, 0.0, engine="megakernel")
+    want = _want_blocks([("MedianBlur", BG_ITERS), ("MedianBlur", BG_ITERS),
+                         ("GaussianBlur", URGENT_ITERS)])
+    log_serve("mega", tasks, urgent, rep, wall_s, 0.0)
+    log(f"[mega] main path: megakernel_launches {rep['megakernel_launches']}, "
+        f"flag_poll_exits {rep['flag_poll_exits']}, preemptions "
+        f"{rep['preemptions']}; row blocks {blocks} (expected exactly "
+        f"{want}); M1 launches {m1}, B1 launches {b1}")
+    if (rep["megakernel_launches"] < 1 or rep["flag_poll_exits"] < 1
+            or blocks != want or min(m1.values()) < 1 or sum(b1.values())):
+        raise AssertionError(f"[mega] main path: launches "
+                             f"{rep['megakernel_launches']}, flag exits "
+                             f"{rep['flag_poll_exits']}, row blocks {blocks} "
+                             f"against {want}, M1 {m1}, B1 {b1}")
+    for t, im, iters in ((tasks[0], imgs[0], BG_ITERS),
+                         (tasks[1], imgs[1], BG_ITERS),
+                         (urgent, imgs[2], URGENT_ITERS)):
+        err = _check_result(t, im, iters, dev)
+        log(f"[mega] task #{t.tid} {t.kernel} x{iters}: preempted "
+            f"{t.n_preemptions}x on regions {t.region_history}, max_abs_err "
+            f"{err:.3e}")
+    arms = {"pipelined": [], "megakernel": []}
+    for engine in MEGA_AB:
+        a_tasks, a_urgent, a_rep, a_wall, _ = serve(imgs, 0.0, engine=engine)
+        every = (*a_tasks, a_urgent)
+        arms[engine].append((a_wall * 1e3,
+                             sum(x.run_s for x in every) / len(every) * 1e3,
+                             a_urgent.service_time * 1e3))
+        log(f"[mega] {engine} run: wall {a_wall * 1e3:.3f} ms, host per task "
+            f"{arms[engine][-1][1]:.4f} ms ({a_rep['chunks']} chunks, "
+            f"{a_rep['megakernel_launches']} megakernel launches, flag exits "
+            f"{a_rep['flag_poll_exits']}), urgent service "
+            f"{a_urgent.service_time * 1e3:.3f} ms, preemptions "
+            f"{a_rep['preemptions']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        prof_json = str(Path(tmp) / "profile.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, p_urgent, _, p_wall, _ = serve(imgs, 0.0, window="mega_window",
+                                              engine="megakernel")
+        prof.export_chrome_trace(prof_json)
+        share = _busy_share(prof_json, "mega_window")
+    log(f"[mega] torch.profiler over one more megakernel run, first "
+        f"submission to last result ({p_wall * 1e3:.3f} ms wall, urgent "
+        f"service {p_urgent.service_time * 1e3:.3f} ms): card busy "
+        f"{share['busy_ms']:.3f} ms of {share['window_ms']:.3f}, busy share "
+        f"{share['busy_share']:.4f}; kernels {share['kernel_n']} "
+        f"({share['kernel_ms']:.3f} ms), copies {share['gpu_memcpy_n']} "
+        f"({share['gpu_memcpy_ms']:.3f} ms); uploads and result copies at "
+        f"once {share['copy_overlap_ms']:.3f} ms")
+    for engine, runs in arms.items():
+        parts = []
+        for i, name in enumerate(("wall", "host per task",
+                                  "urgent service")):
+            xs = [r[i] for r in runs]
+            parts.append(f"{name} median {statistics.median(xs):.4f} ms, "
+                         f"range {min(xs):.4f}-{max(xs):.4f}")
+        log(f"[mega] {engine}, {len(runs)} runs: " + "; ".join(parts))
+
+    # 5e.5 device time per chunk and per task --------------------------------
+    mine, plain = _mega_images(dev, imgs[1])
+    n_chunks = BG_ITERS * (SIZE // ROW_BLOCK) // RUN_BLOCKS
+    ints = task_ints(SIZE, SIZE, BG_ITERS)
+    rows = RUN_BLOCKS * ROW_BLOCK
+    nbytes = ((rows + 2) * (SIZE + 2) + rows * SIZE) * 4
+    records = []
+    timed = {"median": [], "gaussian": []}
+    for kind in ("median", "gaussian", "gaussian", "median"):
+        def m1_task(kind=kind):
+            return K.blur_mega(fresh, *mine, kind, BG_ITERS, RUN_BLOCKS,
+                               flag)
+
+        plain_entry = make_megakernel(get_kernel(KERNELS[kind]))
+
+        def plain_task(kind=kind):
+            plain_entry(ContextRecord.fresh(), plain, ints, None, RUN_BLOCKS,
+                        flag)
+
+        dev_ms, wall_ms, hows = {}, {}, {}
+        for arm, fn, name, n_launch in (
+                ("M1", m1_task, "blur_mega", 1),
+                ("plain", plain_task, "blur_rows", n_chunks)):
+            dev_ms[arm] = _named_ms(fn, name, n_launch)
+            hows[arm] = "torch.profiler"
+            if dev_ms[arm] <= 0.0:
+                dev_ms[arm] = queued_ms(fn, reps=5)
+                hows[arm] = "queued behind a spin kernel"
+            wall_ms[arm] = cuda_time_ms(fn, reps=10)
+        grid = m1_task().grid
+        bound = (nbytes / HBM_BYTES_PER_S * 1e3,
+                 OPS_PER_PIXEL[kind] * rows * SIZE / F32_OPS_PER_S * 1e3)
+        per_chunk = dev_ms["M1"] / n_chunks
+        log(f"[mega] {kind} M1: {dev_ms['M1']:.6f} ms device a "
+            f"{BG_ITERS}-iteration {SIZE}^2 task at budget {RUN_BLOCKS} "
+            f"({hows['M1']}), {per_chunk * 1e3:.4f} us a chunk of "
+            f"{RUN_BLOCKS} row blocks; B1's {RUN_BLOCKS}-block run "
+            f"{b1_ms[kind] * 1e3:.4f} us; bound {max(bound) * 1e3:.4f} us a "
+            f"chunk (bytes {bound[0] * 1e3:.4f}, operations "
+            f"{bound[1] * 1e3:.4f}); the plain version (host loop, "
+            f"{n_chunks} B1 launches) {dev_ms['plain'] / n_chunks * 1e3:.4f} "
+            f"us device a chunk ({hows['plain']}); wall a task (CUDA events, "
+            f"back to back) M1 {wall_ms['M1']:.4f} ms, plain "
+            f"{wall_ms['plain']:.4f} ms; grid {grid['grid']} blocks of 128, "
+            f"cap {grid['cap']} (half of the {grid['coresident']} the card "
+            f"holds at once)")
+        timed[kind].append(dev_ms)
+        if len(timed[kind]) < 2:
+            continue
+        # the record: the mean of the kind's two timings
+        dev_ms = {arm: sum(d[arm] for d in timed[kind]) / 2
+                  for arm in ("M1", "plain")}
+        per_chunk = dev_ms["M1"] / n_chunks
+        records.append({
+            "name": f"blur_mega_{kind}", "route": "cuda",
+            "source": "src/repro_torch/csrc/blur.cu",
+            "replaces": REPLACES_MEGA,
+            "counterpart_of": "make_megakernel (a lax.while_loop over the "
+                              "blur task, not a pallas_call)",
+            "launches": m1[kind], "max_abs_err": errs[kind],
+            "ms": per_chunk, "per": f"chunk of {RUN_BLOCKS} row blocks",
+            "ms_per_task": dev_ms["M1"],
+            "plain_ms": dev_ms["plain"] / n_chunks,
+            "bound_ms": max(bound),
+            "bound_by": "bytes" if bound[0] >= bound[1] else "operations",
+            "library_ms": None, "grid": grid})
+
+    # two regions' launches side by side: the cap leaves the other room
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    pairs = [mine, plain]
+    flags = [flag, PreemptFlag(dev)]
+
+    def on(i):
+        with torch.cuda.stream(streams[i]):
+            return K.blur_mega(fresh, *pairs[i], "median", BG_ITERS,
+                               RUN_BLOCKS, flags[i])
+
+    warm = on(0)
+    warm.result()
+    side_grid = warm.grid
+    t0 = time.perf_counter()
+    for _ in range(MEGA_SIDE_REPS):
+        on(0).result()
+    alone = (time.perf_counter() - t0) / MEGA_SIDE_REPS
+    t0 = time.perf_counter()
+    for _ in range(MEGA_SIDE_REPS):
+        a, b = on(0), on(1)
+        a.result()
+        b.result()
+    both = (time.perf_counter() - t0) / MEGA_SIDE_REPS
+    log(f"[mega] two regions' M1 launches (each grid "
+        f"{side_grid['grid']}) on two streams at once: "
+        f"{both * 1e3:.4f} ms for both against {alone * 1e3:.4f} ms for one "
+        f"alone (ratio {both / alone:.3f}; one after the other would be "
+        f"about 2)")
+    if both / alone >= MEGA_SIDE_MAX:
+        raise AssertionError(f"[mega] two regions' launches took "
+                             f"{both / alone:.3f}x one's: the second region "
+                             f"waited")
+    return records
 
 
 def serving_traffic():
@@ -1802,7 +2395,8 @@ def main() -> int:
         info = native.build_info[lib]
         log(f"[build] {lib}.cu -> {info['path']} ({info['seconds']:.3f} s)")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 log(f"[build] {lib}: {line.strip()}")
 
     # 3. kernel vs plain version --------------------------------------------
@@ -1837,7 +2431,8 @@ def main() -> int:
 
     # 4. main path ----------------------------------------------------------
     imgs = [make_image(rng, SIZE) for _ in range(3)]
-    tasks, urgent, rep, main_s, (blocks, launches) = serve(imgs, SLOWDOWN_S)
+    tasks, urgent, rep, main_s, (blocks, launches, _) = serve(imgs,
+                                                             SLOWDOWN_S)
     n_rb = SIZE // ROW_BLOCK
     budget = get_kernel("MedianBlur").default_budget
     want_blocks = {"median": 2 * BG_ITERS * n_rb,
@@ -1996,6 +2591,10 @@ def main() -> int:
     traced = trace_phase(imgs, dev)
     log(f"[trace] {json.dumps(traced)}")
     log(f"[trace] {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    records += mega_phase(rng, dev, imgs,
+                          {r["name"][5:]: r["ms"] for r in records[:2]})
+    log(f"[mega] {time.perf_counter() - t0:.3f} s")
 
     records += attention_phases(dev, card)
     records += recurrent_phases(dev, card)

@@ -42,6 +42,12 @@ class KernelDef:
     # with the event recorded after the task's last launch; False = the
     # first two buffers as host numpy
     device_result: bool = False
+    # the persistent entry the megakernel engine launches on a CUDA device:
+    # mega(ctx_words, bufs, ints, floats, budget, flag) -> a launch with
+    # query() and result() -> (ctx_words, n_chunks), the whole chunk loop
+    # of a task in one kernel (``core/preemption.make_megakernel``); None =
+    # the kernel has none, and megakernel mode refuses it on the card
+    mega: Optional[Callable] = None
 
     def bundle(self, *bufs, **scalars) -> ArgBundle:
         """Build an ArgBundle from declared argument names."""
@@ -60,7 +66,8 @@ def ctrl_kernel(name: str, backend: str = "PYNQ",
                 default_budget: int = 64,
                 footprint: int = 1,
                 library: Optional[str] = None,
-                device_result: bool = False):
+                device_result: bool = False,
+                mega: Optional[Callable] = None):
     def deco(fn):
         kd = KernelDef(name=name, backend=backend, fn=fn,
                        ktile_args=tuple(ktile_args), int_args=tuple(int_args),
@@ -68,7 +75,8 @@ def ctrl_kernel(name: str, backend: str = "PYNQ",
                        default_budget=default_budget,
                        footprint=footprint,
                        library=library,
-                       device_result=device_result)
+                       device_result=device_result,
+                       mega=mega)
         _REGISTRY[name] = kd
         return fn
 

@@ -17,7 +17,10 @@ context field, an int argument or a static shape — never payload data — so
 the port keeps the record on the host: the arrays are int32 numpy of length
 ``N_CTX`` and the scalars are Python ints.  Chunk control therefore never
 synchronises the GPU, and every field equals the reference's after every
-chunk.
+chunk.  A megakernel launch on the card takes the record by value as
+``CTX_WORDS`` int32 words (``to_words``), runs its chunks with the words
+on the device, and the host record is rebuilt from the words it writes
+back (``from_words``).
 
 ``ContextBank`` keeps the committed copy with the paper's ``valid``-flag
 protocol realized as a double-buffered commit: a crash or preemption
@@ -41,6 +44,7 @@ N_CTX = 8  # compile-time N of the paper's prototype ("up to N integers")
 _FIELDS = ("var", "init_var", "incr_var", "saved", "valid", "done",
            "budget", "intr")
 _ARRAYS = ("var", "init_var", "incr_var", "saved")
+CTX_WORDS = len(_ARRAYS) * N_CTX + len(_FIELDS) - len(_ARRAYS)  # 36
 
 
 def _set(a: np.ndarray, slot: int, value) -> np.ndarray:
@@ -122,6 +126,25 @@ class ContextRecord:
               for f in _ARRAYS}
         kw.update({f: int(np.asarray(leaves[f])) for f in _FIELDS
                    if f not in _ARRAYS})
+        return cls(**kw)
+
+    def to_words(self) -> np.ndarray:
+        """The record as ``CTX_WORDS`` int32 words, in field order: the
+        four arrays, then ``valid``, ``done``, ``budget``, ``intr`` — the
+        layout of the persistent kernels' context (``csrc/blur.cu``,
+        ``struct Ctx``)."""
+        return np.concatenate(
+            [np.asarray(getattr(self, f), np.int32).reshape(-1)
+             for f in _FIELDS]).astype(np.int32)
+
+    @classmethod
+    def from_words(cls, words) -> "ContextRecord":
+        """Inverse of ``to_words()``."""
+        w = np.asarray(words, np.int32).reshape(CTX_WORDS)
+        kw = {f: w[i * N_CTX:(i + 1) * N_CTX].copy()
+              for i, f in enumerate(_ARRAYS)}
+        kw.update({f: int(w[len(_ARRAYS) * N_CTX + i])
+                   for i, f in enumerate(_FIELDS[len(_ARRAYS):])})
         return cls(**kw)
 
 

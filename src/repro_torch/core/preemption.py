@@ -23,10 +23,21 @@ stragglers are handled BETWEEN chunks by the region worker.
 Loop control is host Python over the host-side ``ContextRecord``: the
 bodies only enqueue device work (kernel launches on the current stream), so
 running a chunk never waits for the GPU.
+
+The megakernel engine (``make_megakernel``, ``PreemptFlag``) folds a
+task's whole chunk loop into one launch: on the card a hand-written
+persistent kernel runs the same loop nest with the context on the device
+and polls a mapped host flag at every chunk boundary; on the CPU its plain
+version is a host loop over the chunk entry with the same stop rule.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+import ctypes
+import weakref
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
 
 from repro_torch.core.context import ContextRecord
 
@@ -83,6 +94,168 @@ def make_pipelined_chunk(kernel_fn: Callable):
         return ctx, state, ctx.done
 
     return chunk
+
+
+class PreemptFlag:
+    """The host-writable preempt flag a megakernel launch polls at every
+    chunk boundary, one per region.
+
+    Value protocol (the reference's): ``0`` = keep running; ``N >= 1`` =
+    exit at the first chunk boundary ``k >= N`` (``k`` counts the chunks
+    completed within the current launch).  ``Region.request_preempt``
+    writes ``1``; tests and the serving probe write an exact ``N`` through
+    ``Task.preempt_at_boundary``.
+
+    On a CUDA device the word is pinned host memory mapped into the
+    device's address space (``csrc/preempt_flag.cu``); the host writes it
+    through a numpy view and the running kernel reads it with system-scope
+    acquire loads, so a host store is seen at the next boundary with no
+    copy and no launch.  On the CPU it is a plain host ``int32``.
+
+    A second word holds the launch's progress: the chunks it has
+    completed, written at every boundary before the flag is read (by the
+    kernel on the card, by the host loop on the CPU).
+    """
+
+    def __init__(self, device: Optional[torch.device] = None):
+        # the words as the device addresses them (CUDA): the flag, then the
+        # progress
+        self.device_ptr = 0
+        if device is not None and torch.device(device).type == "cuda":
+            from repro_torch.kernels.native import load_library
+
+            lib = load_library("preempt_flag")
+            lib.preempt_flag_alloc.argtypes = [
+                ctypes.POINTER(ctypes.c_void_p)] * 2
+            lib.preempt_flag_alloc.restype = ctypes.c_int
+            lib.preempt_flag_free.argtypes = [ctypes.c_void_p]
+            lib.preempt_flag_free.restype = ctypes.c_int
+            host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+            err = lib.preempt_flag_alloc(ctypes.byref(host),
+                                         ctypes.byref(dev))
+            if err != 0:
+                raise RuntimeError(f"preempt_flag_alloc failed: CUDA error "
+                                   f"{err}")
+            self._view = np.ctypeslib.as_array(
+                ctypes.cast(host, ctypes.POINTER(ctypes.c_int32)),
+                shape=(2,))
+            self.device_ptr = dev.value
+            # freed with the flag; a region holds its flag while a launch
+            # runs, so no kernel reads a freed word.  Left to the process's
+            # end at exit, when a context may already be gone
+            fin = weakref.finalize(self, lib.preempt_flag_free, host)
+            fin.atexit = False
+        else:
+            self._view = np.zeros((2,), np.int32)
+
+    def write(self, boundary: int):
+        self._view[0] = boundary
+
+    def read(self) -> int:
+        return int(self._view[0])
+
+    def clear(self):
+        self._view[0] = 0
+
+    @property
+    def progress_ptr(self) -> int:
+        """The progress word as the device addresses it (CUDA)."""
+        return self.device_ptr + 4
+
+    def progress(self) -> int:
+        """The chunks the current (or last) launch has completed."""
+        return int(self._view[1])
+
+    def set_progress(self, chunks: int):
+        self._view[1] = chunks
+
+
+class MegaDone:
+    """A finished megakernel launch (a plain version's, which runs on the
+    host before it returns): ``result()`` returns what it was made of."""
+
+    def __init__(self, *result):
+        self._out = result
+
+    def query(self) -> bool:
+        return True
+
+    def result(self):
+        return self._out
+
+
+class _DeviceMega:
+    """A persistent launch in flight on the card: ``query()`` polls its
+    completion event; ``result()`` rebuilds the host record from the
+    context words the kernel wrote back (the buffers it wrote in place)."""
+
+    def __init__(self, launch, bufs):
+        self._launch, self._bufs = launch, bufs
+
+    def query(self) -> bool:
+        return self._launch.query()
+
+    def result(self):
+        words, n_chunks = self._launch.result()
+        return ContextRecord.from_words(words), self._bufs, n_chunks
+
+
+def make_megakernel(kd, device: Optional[torch.device] = None):
+    """The megakernel entry point:
+
+        mega(ctx, bufs, ints, floats, budget, flag, after_chunk=None)
+            -> launch   (launch.query(); launch.result() -> (ctx, bufs,
+                         n_chunks))
+
+    The whole chunk loop of a task in one launch: it runs chunks of
+    ``budget`` while the context is not done, reads ``flag`` after each
+    one (the last included) and stops at the first boundary ``k >= flag``
+    when ``flag != 0``.  It runs at least one chunk unless the context is
+    already done.  ``done == 0`` after the launch is exactly "the flag
+    fired".
+
+    On a CUDA ``device`` it binds the kernel's persistent entry
+    (``KernelDef.mega``): one cooperative launch on the current stream that
+    keeps the context on the card; the host record comes back from the
+    words it writes.  A kernel without one raises ``NotImplementedError``:
+    on the card nothing runs the host loop instead.  Elsewhere it returns
+    the plain version, a host loop over ``make_pipelined_chunk(kd.fn)``
+    with the reference's stop rule, which calls ``after_chunk()`` after
+    each chunk, before the flag is read.  Both publish the chunks done so
+    far in ``flag.progress()``.
+    """
+    if device is not None and torch.device(device).type == "cuda":
+        if kd.mega is None:
+            raise NotImplementedError(
+                f"engine='megakernel' on the card runs kernels that have a "
+                f"persistent entry (the blur tasks); {kd.name} has none: "
+                f"persistent serving kernels come with a later slice of the "
+                f"port (ROADMAP §A.3); use 'pipelined' or 'sync'")
+        entry = kd.mega
+
+        def mega(ctx, bufs, ints, floats, budget, flag, after_chunk=None):
+            return _DeviceMega(entry(ctx.to_words(), bufs, ints, floats,
+                                     int(budget), flag), bufs)
+
+        return mega
+
+    chunk = make_pipelined_chunk(kd.fn)
+
+    def mega(ctx, bufs, ints, floats, budget, flag, after_chunk=None):
+        k = 0
+        flag.set_progress(0)
+        while ctx.done == 0:
+            ctx, bufs, _ = chunk(ctx, bufs, ints, floats, budget)
+            k += 1
+            flag.set_progress(k)
+            if after_chunk is not None:
+                after_chunk()
+            f = flag.read()
+            if f != 0 and k >= f:
+                break
+        return MegaDone(ctx, bufs, k)
+
+    return mega
 
 
 def run_to_completion(chunk_fn, ctx, state, ints, floats, budget: int,

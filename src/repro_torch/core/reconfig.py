@@ -38,7 +38,7 @@ import torch
 
 from repro_torch.controller.abi import ArgBundle
 from repro_torch.controller.kernels import KernelDef, get_kernel
-from repro_torch.core.preemption import make_pipelined_chunk
+from repro_torch.core.preemption import make_megakernel, make_pipelined_chunk
 from repro_torch.kernels.native import load_library
 
 # provenance of a cached bitstream
@@ -183,9 +183,11 @@ class ReconfigEngine:
     def cache_key(self, kernel: str, sig: tuple, geometry: tuple,
                   program: str = "chunk") -> tuple:
         """``program`` selects the entry point: ``"chunk"`` (one
-        budget-bounded chunk per dispatch — the sync/pipelined engines);
-        the reference's ``"mega"`` program is not ported yet.  The key
-        layout is the reference's, so keys compare across the two."""
+        budget-bounded chunk per dispatch — the sync/pipelined engines) or
+        ``"mega"`` (the whole chunk loop in one launch — the megakernel
+        engine).  Same kernel + signature + geometry, distinct bitstreams.
+        The key layout is the reference's, so keys compare across the
+        two."""
         return (kernel, sig, geometry, program)
 
     def _key_stats(self, key: tuple) -> KeyStats:
@@ -321,20 +323,26 @@ class ReconfigEngine:
         """Generate the bitstream for this key: on a CUDA engine, build
         and load the kernel's hand-written library (``nvcc`` once per
         process, under the builder's own lock — never the ICAP lock),
-        then bind the uniform chunk entry
+        then bind the entry ``program`` names: ``"chunk"``,
 
             chunk(ctx, bufs, ints, floats, budget) -> (ctx, bufs, done)
 
-        The megakernel program comes with a later slice of the port."""
-        if program != "chunk":
-            raise NotImplementedError(
-                f"program {program!r}: the megakernel engine is not ported "
-                f"yet; only the 'chunk' program exists")
+        or ``"mega"`` (``core/preemption.make_megakernel``),
+
+            mega(ctx, bufs, ints, floats, budget, flag) -> launch
+
+        which on a CUDA engine is the kernel's persistent entry and raises
+        ``NotImplementedError`` for a kernel that has none."""
+        if program not in ("chunk", "mega"):
+            raise ValueError(f"unknown program kind {program!r}")
         t0 = time.perf_counter()
+        # bound first: a kernel the card cannot run as "mega" raises
+        # before anything is built
+        fn = (make_megakernel(kd, self.device) if program == "mega"
+              else make_pipelined_chunk(kd.fn))
         if kd.library is not None and self.device is not None \
                 and self.device.type == "cuda":
             load_library(kd.library)
-        fn = make_pipelined_chunk(kd.fn)
         with self._lock:
             self.stats.total_compile_s += time.perf_counter() - t0
         tr = self.tracer

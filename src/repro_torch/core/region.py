@@ -21,7 +21,7 @@ and raises a TASK_PREEMPTED interrupt.  Chunk control runs on the host, so
 a chunk's ``done`` is known as soon as its launches are issued; the event
 recorded after them says when the device has finished them.
 
-The region runs one of two engine modes:
+The region runs one of three engine modes:
 
 - ``sync`` — wait for each chunk's event before issuing the next: the
   bit-identity reference;
@@ -29,19 +29,26 @@ The region runs one of two engine modes:
   event resolves, polling ``Event.query()`` with backoff, so the device
   never idles across a chunk boundary waiting on the host.  The chunk entry
   is done-gated to identity, so the one speculative chunk issued beyond
-  completion launches nothing and results stay bit-identical.
+  completion launches nothing and results stay bit-identical;
+- ``megakernel`` — the whole chunk loop of a task in one launch: on the
+  card one persistent kernel (the blur tasks' M1) runs every remaining
+  chunk with the context on the device and polls the region's mapped
+  preempt flag (``core/preemption.PreemptFlag``) at every chunk boundary;
+  on the CPU its plain version, a host loop with the same stop rule.  The
+  host waits on the launch's event and rebuilds the host record from the
+  context words the kernel wrote back.
 
-The reference's third mode, ``megakernel``, comes with a later slice of
-the port.  Context and payload buffers stay device-resident across chunks
-and across preempt/resume on the same region; the host copy of a
-preemption commit is produced lazily, only when a cross-region resume
-needs host bytes.
+Context and payload buffers stay device-resident across chunks and across
+preempt/resume on the same region; the host copy of a preemption commit
+is produced lazily, only when a cross-region resume needs host bytes — a
+flag-exited launch feeds the same commit path.
 
 With a tracer or a metrics registry (``Shell(tracer=, metrics=)``) the
 region emits the reference's events and instruments: ``reconfig``, ``run``
-and ``chunk`` spans, ``preempt_request``, ``preempt_honored``, ``done`` and
-``region_failed``, all stamped on the host clock: the port's
-``DESIGN.md``, "What a span covers on the card", says what each spans.
+and ``chunk`` spans, ``mega_launch``, ``preempt_request``,
+``preempt_honored``, ``done`` and ``region_failed``, all stamped on the
+host clock: the port's ``DESIGN.md``, "What a span covers on the card",
+says what each spans.
 """
 from __future__ import annotations
 
@@ -59,15 +66,17 @@ import torch
 from repro_torch.controller.kernels import get_kernel
 from repro_torch.core.context import ContextBank, ContextRecord, Committed
 from repro_torch.core.interrupts import Event, EventKind, InterruptController
+from repro_torch.core.preemption import PreemptFlag
 from repro_torch.core.reconfig import ReconfigEngine
 from repro_torch.core.streams import mark_ready, wait_ready
 from repro_torch.core.task import Task, TaskStatus
 
-# host-side wait while a chunk's event resolves: bounded exponential
-# backoff instead of a fixed-interval busy-poll — a long chunk no longer
-# burns a host core, while the floor keeps short chunks prompt.  The device
-# is busy with the speculative chunk during this wait, so the interval only
-# bounds preempt/failure *response* latency, never throughput.
+# host-side wait while a chunk's (or a megakernel launch's) event resolves:
+# bounded exponential backoff instead of a fixed-interval busy-poll — a long
+# chunk no longer burns a host core, while the floor keeps short chunks
+# prompt.  The device is busy with the speculative chunk (or the launch)
+# during this wait, so the interval only bounds preempt/failure *response*
+# latency, never throughput.
 _POLL_MIN_S = 5e-6
 _POLL_MAX_S = 1e-3
 
@@ -78,11 +87,6 @@ def check_engine_mode(mode: str) -> str:
     if mode not in ENGINE_MODES:
         raise ValueError(f"unknown engine mode {mode!r}; "
                          f"known: {ENGINE_MODES}")
-    if mode == "megakernel":
-        raise NotImplementedError(
-            "engine='megakernel' (one persistent launch per task polling a "
-            "mapped preempt flag) comes with a later slice of the port; use "
-            "'pipelined' or 'sync'")
     return mode
 
 
@@ -123,6 +127,8 @@ class RegionStats:
     chunks_pipelined: int = 0   # chunks issued while a predecessor resolved
     chunks_discarded: int = 0   # speculative identity chunks past done
     host_spills_avoided: int = 0  # device-resident resumes (no host copy)
+    megakernel_launches: int = 0  # single-launch task dispatches
+    flag_poll_exits: int = 0      # launches that exited on the preempt flag
     # which body the last kernel-library-bearing bitstream runs: "cuda"
     # (the hand-written kernel) or "torch" (its plain version, CPU only);
     # None until one loads — benches read it so a CPU number is never
@@ -156,6 +162,12 @@ class Region:
         self.geometry = geometry
         self.chunk_budget = chunk_budget
         self.engine_mode = check_engine_mode(engine_mode)
+        # the megakernel's preempt flag, one per region (at most one launch
+        # is in flight on a region); a placeholder slice makes it at its
+        # first launch
+        self.flag: Optional[PreemptFlag] = None
+        if self.engine_mode == "megakernel" and self.devices:
+            self.flag = PreemptFlag(self.device)
         self.bank = ContextBank()
         self.loaded: Optional[tuple] = None  # (kernel, sig, geometry)
         self.executable = None
@@ -174,7 +186,13 @@ class Region:
         self.slowdown_s: float = 0.0  # straggler-injection test hook
         # test/bench hook: called as on_chunk(region, task) on the worker
         # thread after each retired chunk (deterministic preemption points)
+        # (megakernel mode: after each chunk of the CPU's plain version; a
+        # launch on the card runs its chunks without the host)
         self.on_chunk: Optional[Callable[["Region", Task], None]] = None
+        # test/bench hook, megakernel mode: called as on_launch(region,
+        # task) on the worker thread just before a launch is issued, once
+        # its flag is set
+        self.on_launch: Optional[Callable[["Region", Task], None]] = None
         self._thread: Optional[threading.Thread] = None
         self.start()
 
@@ -235,14 +253,24 @@ class Region:
             # from what a waiting scheduler actually experiences
             self._t_preempt_req = time.perf_counter()
         self._preempt.set()
+        if self.flag is not None:
+            # the in-flight megakernel launch reads the store at its next
+            # chunk boundary and exits there
+            self.flag.write(1)
 
     def cancel_preempt(self):
         self._preempt.clear()
         self._t_preempt_req = None
+        if self.flag is not None:
+            self.flag.clear()
 
     def inject_failure(self):
         """Kill this region (node failure simulation)."""
         self._failed.set()
+        if self.flag is not None:
+            # pop an in-flight megakernel launch at its next chunk boundary,
+            # so the failure interrupt is raised within a chunk
+            self.flag.write(1)
 
     def begin_drain(self):
         """Elastic shrink step 1: stop accepting dispatches.  The caller
@@ -344,6 +372,11 @@ class Region:
         if self._failed.is_set():
             raise RegionFailure()
 
+    @property
+    def program(self) -> str:
+        """Which entry point this region's mode needs."""
+        return "mega" if self.engine_mode == "megakernel" else "chunk"
+
     def _do_reconfig(self, task: Task):
         self._check_failure()
         key = (task.kernel, task.args.signature(), self.geometry)
@@ -352,7 +385,7 @@ class Region:
         task.status = TaskStatus.RECONFIGURING
         t_rc0 = time.perf_counter()
         fn, dt = self.engine.load(task.kernel, task.args, self.geometry,
-                                  self.devices)
+                                  self.devices, program=self.program)
         self.loaded = key
         self.executable = fn
         self.stats.reconfigs += 1
@@ -514,6 +547,10 @@ class Region:
             task.t_first_served = time.perf_counter()
         self.current_task = task
         t_busy0 = time.perf_counter()
+        if self.engine_mode == "megakernel":
+            self._launch_megakernel(task, kd, budget, ints, floats, ctx, bufs,
+                                    t_busy0)
+            return
         depth = 1 if self.engine_mode == "pipelined" else 0
         pending: "deque" = deque()  # (done, event) of unretired chunks
         t_last = time.perf_counter()
@@ -599,6 +636,81 @@ class Region:
                 pending.clear()
                 break
 
+        self._finish_done(task, kd, bufs, t_busy0)
+
+    # -- the megakernel execution hot path --------------------------------
+    def _launch_megakernel(self, task: Task, kd, budget: int, ints, floats,
+                           ctx, bufs, t_busy0: float):
+        """ONE launch runs every remaining chunk: it re-reads the region's
+        preempt flag at each chunk boundary and exits there when it fires.
+        ``done == 0`` after it is exactly "the flag fired mid-task": the
+        partial context feeds the same commit path a host-driven
+        preemption uses, bit-identically to the sync/pipelined engines
+        stopping at the same boundary."""
+        if self.flag is None:
+            self.flag = PreemptFlag(self.device)
+        flag = self.flag
+        if self._preempt.is_set():
+            # a preempt request that lands before dispatch commits the
+            # prepared state as-is (zero chunks ran; resume restarts from
+            # the same boundary)
+            self._preempt.clear()
+            flag.clear()
+            self._commit_preempt(task, ctx, bufs, t_busy0)
+            return
+        arm = task.preempt_at_boundary
+        if arm is not None:
+            task.preempt_at_boundary = None  # one-shot: consumed at launch
+            flag.write(int(arm))
+        else:
+            # a stale flag value must not preempt this launch; re-assert
+            # after clearing in case request_preempt raced the clear (its
+            # event store precedes its flag store, so the recheck sees it)
+            flag.clear()
+            if self._preempt.is_set():
+                flag.write(1)
+        if self.on_launch is not None:
+            self.on_launch(self, task)
+        hook = self.on_chunk
+        after_chunk = (None if hook is None
+                       else lambda: hook(self, task))
+        t0 = time.perf_counter()
+        launch = self.executable(ctx, bufs, ints, floats, budget, flag,
+                                 after_chunk=after_chunk)
+        self.stats.megakernel_launches += 1
+        # the whole loop is in flight on the card; the host only waits for
+        # its event.  A failure injected mid-flight pops the launch through
+        # the flag, so this wait stays bounded by one chunk, then surfaces
+        # through _check_failure below
+        delay = _POLL_MIN_S
+        while not launch.query():
+            if self._failed.is_set() and flag.read() == 0:
+                flag.write(1)
+            time.sleep(delay)
+            delay = min(delay * 2.0, _POLL_MAX_S)
+        self._check_failure()
+        ctx, bufs, k = launch.result()
+        dt = time.perf_counter() - t0
+        if k:
+            per = dt / k
+            a = 0.3
+            self.stats.chunk_ewma_s = (
+                per if self.stats.chunks == 0
+                else a * per + (1 - a) * self.stats.chunk_ewma_s)
+        self.stats.chunks += k
+        task.run_s += dt
+        tr = self.tracer
+        if tr is not None:
+            tr.emit("mega_launch", self._track, tid=task.tid,
+                    t=t0, dur=dt, n_chunks=k, done=int(ctx.done))
+        if not ctx.done:
+            # the launch exited on the flag at a chunk boundary
+            self.stats.flag_poll_exits += 1
+            self._preempt.clear()
+            flag.clear()
+            self._commit_preempt(task, ctx, bufs, t_busy0)
+            return
+        flag.clear()
         self._finish_done(task, kd, bufs, t_busy0)
 
 

@@ -939,6 +939,11 @@ class Scheduler:
                                     for r in regions_ever),
             "host_spills_avoided": sum(r.stats.host_spills_avoided
                                        for r in regions_ever),
+            # megakernel accounting
+            "megakernel_launches": sum(r.stats.megakernel_launches
+                                       for r in regions_ever),
+            "flag_poll_exits": sum(r.stats.flag_poll_exits
+                                   for r in regions_ever),
             "coalesced_dispatches": self.coalesced_dispatches,
             "reconfigs": es.partial_loads,
             "full_reconfigs": es.full_reconfigs,

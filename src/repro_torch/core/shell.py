@@ -84,8 +84,11 @@ class Shell:
             self.engine, max_queue=prefetch_max_queue, auto_start=False)
         self.prefetch_enabled = prefetch
         self.chunk_budget = chunk_budget
-        # region execution engine mode: "pipelined" | "sync"
+        # region execution engine mode: "pipelined" | "sync" | "megakernel"
         self.engine_mode = check_engine_mode(engine)
+        # megakernel regions load the "mega" program: prefetch warms that
+        self.prefetcher.program = (
+            "mega" if self.engine_mode == "megakernel" else "chunk")
         # test/bench hook inherited by regions added later
         self.region_slowdown_s: float = 0.0
         self.floorplanner = Floorplanner(self.devices,
@@ -190,6 +193,8 @@ class Shell:
                     "chunks_pipelined": r.stats.chunks_pipelined,
                     "chunks_discarded": r.stats.chunks_discarded,
                     "host_spills_avoided": r.stats.host_spills_avoided,
+                    "megakernel_launches": r.stats.megakernel_launches,
+                    "flag_poll_exits": r.stats.flag_poll_exits,
                     "kernel_mode": r.stats.kernel_mode}
             for r in self.regions
         }

@@ -56,8 +56,41 @@
 //   which would round differently).  The weights are powers of two, so every
 //   product is exact; the explicit _rn intrinsics keep the compiler from
 //   contracting into FMAs.  Expected bitwise; stated tolerance 1e-6.
+//
+// M1, the persistent blur megakernel (`blur_mega`, below).  Counterpart of
+// the reference's `make_megakernel` (src/repro/core/preemption.py:174) over
+// the blur task, a jitted `lax.while_loop` that runs on its CPU backend
+// only; not a `pallas_call`.  One cooperative launch runs the task's whole
+// remaining chunk loop: every thread of every block runs the for_save
+// control flow of kernels/blur/tasks.py over its own copy of the 36 context
+// words (registers), the same scalar code on the same inputs, so all take
+// the same branches and meet every grid sync together; the blocks share the
+// row blocks of each pass's run in a grid-stride loop over B1's tiles (8
+// rows a thread), loading through L2 (`__ldcg`, not the read-only path: a
+// pass reads what the last one wrote in the same launch).  A grid sync
+// follows each run and each chunk boundary; at a boundary block 0's thread
+// 0 writes the chunks done to a mapped host word, reads the host's preempt
+// flag with `ld.acquire.sys` and publishes the stop decision in device
+// memory for all blocks.  Block 0 writes back the context words, the chunk
+// count and the row blocks; every block adds the tiles it ran, so the host
+// checks that the grid covered each row block once.
+//   blur_mega(ctx, ping, pong, stride, n_rb, width, iters, budget,
+//             max_chunks, kind, vec, flag, progress, out, device, info,
+//             stream)
+// The grid is sized with cudaOccupancyMaxActiveBlocksPerMultiprocessor and
+// capped at half the blocks the card holds at once (`kRegionsSharing`): a
+// cooperative launch starts only when all its blocks fit, so two uncapped
+// regions would run one after the other.  No more blocks than one run's
+// tiles.  `max_chunks` bounds the loop: a launch that reaches it undone
+// reports status 1 and the wrapper raises, so a broken control flow cannot
+// hold the card.
+// Bound: B1's bytes per chunk (2.51 us for an 8-block chunk at width 4096);
+// the syncs and the flag read come on top.  Numerics are B1's, bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -98,22 +131,37 @@ __device__ __forceinline__ float gaussian9(const float (&col)[3][4], int j) {
   return acc;
 }
 
+// One float (or float2) of a source row.  kNc: through the read-only data
+// cache (`__ldg`), for a source nothing writes while the kernel runs (B1);
+// otherwise from L2 (`__ldcg`), for the persistent kernel, whose passes read
+// what another block wrote earlier in the same launch.
+template <bool kNc, typename T>
+__device__ __forceinline__ T load(const T* p) {
+  if constexpr (kNc) {
+    return __ldg(p);
+  } else {
+    return __ldcg(p);
+  }
+}
+
 // Columns c, c + 1 of one source row, zero past the row's end.
-template <bool kVec>
-__device__ __forceinline__ float2 load2(const float* __restrict__ row, int c, int n) {
-  if (kVec && c + 1 < n) return __ldg(reinterpret_cast<const float2*>(row + c));
+template <bool kVec, bool kNc = true>
+__device__ __forceinline__ float2 load2(const float* row, int c, int n) {
+  if (kVec && c + 1 < n) return load<kNc>(reinterpret_cast<const float2*>(row + c));
   float2 v = make_float2(0.f, 0.f);
-  if (c < n) v.x = __ldg(row + c);
-  if (c + 1 < n) v.y = __ldg(row + c + 1);
+  if (c < n) v.x = load<kNc>(row + c);
+  if (c + 1 < n) v.y = load<kNc>(row + c + 1);
   return v;
 }
 
-template <int R, bool kVec, bool kMedian>
-__global__ void __launch_bounds__(kThreads)
-blur_rows_kernel(const float* __restrict__ src, long long src_stride, float* __restrict__ dst,
-                 long long dst_stride, int rows, int width) {
-  const int j0 = 2 * (blockIdx.x * kThreads + threadIdx.x);  // first output column
-  const int r0 = blockIdx.y * R;                             // first output row
+// The work of one B1 block: columns 2 x (bx * 128 + thread) and the next,
+// output rows by * R .. by * R + R - 1.
+template <int R, bool kVec, bool kMedian, bool kNc>
+__device__ __forceinline__ void blur_tile(const float* src, long long src_stride, float* dst,
+                                          long long dst_stride, int rows, int width, int bx,
+                                          int by) {
+  const int j0 = 2 * (bx * kThreads + threadIdx.x);  // first output column
+  const int r0 = by * R;                             // first output row
   const int src_width = width + 2;
 
   // the 4 columns of every input row of the strip, loaded before any is used
@@ -123,8 +171,8 @@ blur_rows_kernel(const float* __restrict__ src, long long src_stride, float* __r
     float2 lo = make_float2(0.f, 0.f), hi = lo;
     if (r0 + i < rows + 2) {
       const float* s = src + (long long)(r0 + i) * src_stride;
-      lo = load2<kVec>(s, j0, src_width);
-      hi = load2<kVec>(s, j0 + 2, src_width);
+      lo = load2<kVec, kNc>(s, j0, src_width);
+      hi = load2<kVec, kNc>(s, j0 + 2, src_width);
     }
     c[i][0] = lo.x;
     c[i][1] = lo.y;
@@ -155,6 +203,14 @@ blur_rows_kernel(const float* __restrict__ src, long long src_stride, float* __r
   }
 }
 
+template <int R, bool kVec, bool kMedian>
+__global__ void __launch_bounds__(kThreads)
+blur_rows_kernel(const float* __restrict__ src, long long src_stride, float* __restrict__ dst,
+                 long long dst_stride, int rows, int width) {
+  blur_tile<R, kVec, kMedian, true>(src, src_stride, dst, dst_stride, rows, width, blockIdx.x,
+                                    blockIdx.y);
+}
+
 template <int R, bool kVec>
 void launch(const float* src, long long src_stride, float* dst, long long dst_stride, int rows,
             int width, int kind, cudaStream_t s) {
@@ -179,6 +235,199 @@ void launch_rows(const float* src, long long src_stride, float* dst, long long d
   }
 }
 
+// ---------------------------------------------------------------------------
+// M1: the persistent blur megakernel (one cooperative launch per task).
+
+constexpr int kCtxN = 8;                    // the context record's N (core/context.py)
+constexpr int kSlotK = 0, kSlotRow = 1;     // kernels/blur/tasks.py
+constexpr int kRowBlock = 32;               // the preemption unit: one budget unit
+constexpr int kMegaRows = 8;                // output rows a thread per tile
+// out[]: the context words, then these
+constexpr int kCtxWords = 4 * kCtxN + 4;
+constexpr int kOutChunks = kCtxWords;       // chunks this launch ran
+constexpr int kOutRowBlocks = kCtxWords + 1;  // row blocks its control issued
+constexpr int kOutTiles = kCtxWords + 2;    // tiles the blocks ran (atomic sum)
+constexpr int kOutStatus = kCtxWords + 3;   // 0, or 1: hit max_chunks undone
+constexpr int kOutDecision = kCtxWords + 4;  // 2 slots: the stop word of a boundary
+constexpr int kOutWords = kCtxWords + 6;
+// a region's launch takes at most 1 / kRegionsSharing of the blocks the
+// card can hold at once, so another region's cooperative launch still fits
+constexpr int kRegionsSharing = 2;
+
+// struct context (Listing 1.3) plus done/budget/intr, in ContextRecord's
+// field order (ContextRecord.to_words)
+struct Ctx {
+  int var[kCtxN];
+  int init_var[kCtxN];
+  int incr_var[kCtxN];
+  int saved[kCtxN];
+  int valid, done, budget, intr;
+};
+static_assert(sizeof(Ctx) == kCtxWords * sizeof(int), "Ctx must be the 36 context words");
+
+struct MegaArgs {
+  Ctx ctx;         // the record at launch, by value
+  float* ping;     // padded [H+2, W+2] images, row stride `stride` floats
+  float* pong;
+  long long stride;
+  int n_rb, width, iters, budget, max_chunks;
+  const int* flag;  // the mapped host preempt word
+  int* progress;    // the mapped host word of the chunks completed
+  int* out;         // kOutWords device words, zeroed by the caller
+};
+
+// the host's flag word: a system-scope acquire load, never a cached one
+__device__ __forceinline__ int load_flag(const int* p) {
+  int v;
+  asm volatile("ld.acquire.sys.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Blur row blocks [first, first + n_blocks) of `src` into `dst` in place,
+// the tiles shared over the grid.  Returns the tiles this block ran.
+template <bool kVec, bool kMedian>
+__device__ __forceinline__ int mega_run(const float* src, float* dst, long long stride, int first,
+                                        int n_blocks, int width) {
+  const int rows = n_blocks * kRowBlock;
+  const int col_blocks = ((width + 1) / 2 + kThreads - 1) / kThreads;
+  const int n_tiles = col_blocks * (rows / kMegaRows);
+  const float* s = src + (long long)first * kRowBlock * stride;
+  float* d = dst + ((long long)first * kRowBlock + 1) * stride + 1;
+  int mine = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++mine) {
+    blur_tile<kMegaRows, kVec, kMedian, false>(s, stride, d, stride, rows, width,
+                                               t % col_blocks, t / col_blocks);
+  }
+  return mine;
+}
+
+// Every thread of every block runs the task's control flow, the same scalar
+// code on the same inputs, so all take the same branches and meet every
+// grid sync together.  It is kernels/blur/tasks.py's _blur_task under
+// core/preemption.py's for_save, word for word, chunk after chunk:
+//   for_save(K, 0, iters): checkpoint(K, k);
+//     for_save(ROW, 0, n_rb): checkpoint(ROW, r + 1)   -- a row block each
+//     run the pass's row blocks; if not intr: checkpoint(K, k + 1)
+//   if not intr: done
+// with dec_budget on both loop levels and intr telling the outer loop that
+// the inner one was cut.  A grid sync follows each pass's run (the next pass
+// reads what it wrote) and each chunk boundary (the stop decision).
+template <bool kVec, bool kMedian>
+__global__ void __launch_bounds__(kThreads) blur_mega_kernel(const MegaArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  Ctx c = a.ctx;
+  int n_chunks = 0, row_blocks = 0, status = 0, stop = 0;
+  while (c.done == 0 && stop == 0) {
+    if (n_chunks == a.max_chunks) {  // never on a right control flow
+      status = 1;
+      break;
+    }
+    c.budget = a.budget;  // ctx.with_budget(budget)
+    c.intr = 0;
+    // for_save(ctx, SLOT_K, 0, iters, 1, body_k)
+    c.init_var[kSlotK] = 0;  // declare
+    c.incr_var[kSlotK] = 1;
+    int k = c.saved[kSlotK] == 1 ? c.var[kSlotK] : 0;  // resume_value
+    c.saved[kSlotK] = 0;                                 // unsave
+    while (k < a.iters && c.budget > 0 && c.intr == 0) {
+      c.intr = 0;
+      c.var[kSlotK] = k;  // body_k: checkpoint(SLOT_K, k)
+      c.saved[kSlotK] = 1;
+      // for_save(ctx, SLOT_ROW, 0, n_rb, 1, body_row)
+      c.init_var[kSlotRow] = 0;
+      c.incr_var[kSlotRow] = 1;
+      int r = c.saved[kSlotRow] == 1 ? c.var[kSlotRow] : 0;
+      c.saved[kSlotRow] = 0;
+      const int first = r;
+      while (r < a.n_rb && c.budget > 0 && c.intr == 0) {
+        c.intr = 0;
+        c.var[kSlotRow] = r + 1;  // body_row: checkpoint(SLOT_ROW, r + 1)
+        c.saved[kSlotRow] = 1;
+        c.budget -= 1;  // body_row holds no loop: the iteration always counts
+        r += 1;
+      }
+      const bool rows_done = r >= a.n_rb;
+      if (rows_done) {  // clear(SLOT_ROW)
+        c.var[kSlotRow] = 0;
+        c.saved[kSlotRow] = 0;
+      }
+      c.intr = rows_done ? 0 : 1;
+      // the pass's run: iteration k reads ping when k is even
+      const bool even = c.var[kSlotK] % 2 == 0;
+      const int mine = mega_run<kVec, kMedian>(even ? a.ping : a.pong, even ? a.pong : a.ping,
+                                               a.stride, first, r - first, a.width);
+      if (threadIdx.x == 0 && mine) atomicAdd(a.out + kOutTiles, mine);
+      row_blocks += r - first;
+      grid.sync();
+      if (c.intr == 0) {  // checkpoint(SLOT_K, k + 1)
+        c.var[kSlotK] = k + 1;
+        c.saved[kSlotK] = 1;
+      }
+      const bool ok = c.intr == 0;
+      c.budget -= 1;
+      if (ok) k += 1;
+    }
+    const bool iters_done = k >= a.iters;
+    if (iters_done) {  // clear(SLOT_K)
+      c.var[kSlotK] = 0;
+      c.saved[kSlotK] = 0;
+    }
+    c.intr = iters_done ? 0 : 1;
+    if (c.intr == 0) c.done = 1;  // ctx.finish()
+    ++n_chunks;
+    // the chunk boundary: one thread tells the host how far the launch got,
+    // reads the host's word and publishes the decision, so a host write
+    // landing meanwhile cannot split the grid.  Two slots: a block still
+    // reading the last boundary's never sees this one's write
+    int* decision = a.out + kOutDecision + (n_chunks & 1);
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      *reinterpret_cast<volatile int*>(a.progress) = n_chunks;
+      const int f = load_flag(a.flag);
+      *reinterpret_cast<volatile int*>(decision) = (f != 0 && n_chunks >= f) ? 1 : 0;
+    }
+    grid.sync();
+    stop = *reinterpret_cast<volatile int*>(decision);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < kCtxN; ++i) {  // ContextRecord.to_words order
+      a.out[i] = c.var[i];
+      a.out[kCtxN + i] = c.init_var[i];
+      a.out[2 * kCtxN + i] = c.incr_var[i];
+      a.out[3 * kCtxN + i] = c.saved[i];
+    }
+    a.out[4 * kCtxN] = c.valid;
+    a.out[4 * kCtxN + 1] = c.done;
+    a.out[4 * kCtxN + 2] = c.budget;
+    a.out[4 * kCtxN + 3] = c.intr;
+    a.out[kOutChunks] = n_chunks;
+    a.out[kOutRowBlocks] = row_blocks;
+    a.out[kOutStatus] = status;
+  }
+}
+
+template <bool kVec, bool kMedian>
+int launch_mega(const MegaArgs& a, int max_tiles, int device, int* info, cudaStream_t s) {
+  const void* kernel = reinterpret_cast<const void*>(blur_mega_kernel<kVec, kMedian>);
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, blur_mega_kernel<kVec, kMedian>, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int coresident = per_sm * sms;
+  const int cap = coresident / kRegionsSharing > 0 ? coresident / kRegionsSharing : 1;
+  const int grid = max_tiles < cap ? (max_tiles > 0 ? max_tiles : 1) : cap;
+  info[0] = grid;
+  info[1] = cap;
+  info[2] = coresident;
+  MegaArgs arg = a;
+  void* params[] = {&arg};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), params, 0, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int blur_rows(const float* src, long long src_stride, float* dst,
@@ -196,4 +445,48 @@ extern "C" int blur_rows(const float* src, long long src_stride, float* dst,
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// M1: the task's remaining chunk loop in one cooperative launch.  `ctx` is
+// the 36 host context words (ContextRecord.to_words), passed by value;
+// `flag` and `progress` are the mapped host words of csrc/preempt_flag.cu;
+// `out`
+// receives kOutWords words (zeroed by the caller); `info` receives the grid,
+// its cap and the co-resident blocks of the card.  Returns cudaError_t.
+extern "C" int blur_mega(const int* ctx, float* ping, float* pong, long long stride, int n_rb,
+                         int width, int iters, int budget, int max_chunks, int kind, int vec,
+                         const int* flag, int* progress, int* out, int device, int* info,
+                         void* stream) {
+  if (n_rb <= 0 || width <= 0 || iters < 0 || budget <= 0 || max_chunks <= 0 ||
+      (kind != 0 && kind != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  MegaArgs a;
+  const int* w = ctx;
+  int* c = reinterpret_cast<int*>(&a.ctx);
+  for (int i = 0; i < kCtxWords; ++i) c[i] = w[i];
+  a.ping = ping;
+  a.pong = pong;
+  a.stride = stride;
+  a.n_rb = n_rb;
+  a.width = width;
+  a.iters = iters;
+  a.budget = budget;
+  a.max_chunks = max_chunks;
+  a.flag = flag;
+  a.progress = progress;
+  a.out = out;
+  // the most tiles one pass's run can hold: a run has at most min(budget,
+  // n_rb) row blocks; more blocks than that would only wait at the syncs
+  const int col_blocks = ((width + 1) / 2 + kThreads - 1) / kThreads;
+  const int run_blocks = budget < n_rb ? budget : n_rb;
+  const int max_tiles = col_blocks * run_blocks * (kRowBlock / kMegaRows);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    return kind == 0 ? launch_mega<true, true>(a, max_tiles, device, info, s)
+                     : launch_mega<true, false>(a, max_tiles, device, info, s);
+  }
+  return kind == 0 ? launch_mega<false, true>(a, max_tiles, device, info, s)
+                   : launch_mega<false, false>(a, max_tiles, device, info, s);
 }

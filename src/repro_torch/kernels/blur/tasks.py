@@ -22,6 +22,10 @@ touches at most two passes: at most two launches a chunk.  The parity of
 ``k`` is read from the host context and each run writes its rows in place
 into the destination image (the reference instead rebuilds both whole
 images with ``jnp.where`` on every row block).
+
+Both kernels register a persistent entry (``mega``): in megakernel mode a
+CUDA region runs the whole chunk loop below as one launch of M1
+(``csrc/blur.cu``, ``ops.blur_mega``), the same control flow on the card.
 """
 from __future__ import annotations
 
@@ -30,10 +34,12 @@ import numpy as np
 from repro_torch.controller.kernels import ctrl_kernel
 from repro_torch.core.context import ContextRecord
 from repro_torch.core.preemption import for_save
-from repro_torch.kernels.blur.ops import blur_rows
+from repro_torch.controller.abi import N_INT_ARGS
+from repro_torch.kernels.blur.ops import blur_mega, blur_rows
 
 ROW_BLOCK = 32
 SLOT_K, SLOT_ROW = 0, 1
+KERNELS = {"median": "MedianBlur", "gaussian": "GaussianBlur"}
 
 
 class _Run:
@@ -86,16 +92,35 @@ def _blur_task(ctx: ContextRecord, bufs, ints, floats, kind: str):
     return ctx, tuple(bufs)
 
 
+def task_ints(h: int, w: int, iters: int) -> np.ndarray:
+    """The padded int arguments of a blur task (``H``, ``W``, ``iters``)."""
+    ints = np.zeros((N_INT_ARGS,), np.int32)
+    ints[:3] = (h, w, iters)
+    return ints
+
+
+def _persistent(kind: str):
+    """The megakernel engine's entry for one body: the context words and
+    the ping/pong buffers to ``ops.blur_mega``."""
+    def mega(ctx_words, bufs, ints, floats, budget, flag):
+        return blur_mega(ctx_words, bufs[0], bufs[1], kind, int(ints[2]),
+                         budget, flag)
+
+    return mega
+
+
 @ctrl_kernel("MedianBlur", backend="PYNQ",
              ktile_args=("input_array", "output_array"),
-             int_args=("H", "W", "iters"), default_budget=8, library="blur")
+             int_args=("H", "W", "iters"), default_budget=8, library="blur",
+             mega=_persistent("median"))
 def median_blur_task(ctx, bufs, ints, floats):
     return _blur_task(ctx, bufs, ints, floats, "median")
 
 
 @ctrl_kernel("GaussianBlur", backend="PYNQ",
              ktile_args=("input_array", "output_array"),
-             int_args=("H", "W", "iters"), default_budget=8, library="blur")
+             int_args=("H", "W", "iters"), default_budget=8, library="blur",
+             mega=_persistent("gaussian"))
 def gaussian_blur_task(ctx, bufs, ints, floats):
     return _blur_task(ctx, bufs, ints, floats, "gaussian")
 

@@ -618,8 +618,10 @@ class ServingEngine:
 
     def _maybe_probe_preempt(self, task: Task):
         """CI/test hook: checkpoint-preempt the round once, mid-flight.
-        It races the round from a thread; where a preemption must land for
-        certain, tests place it with the region's ``on_chunk`` hook."""
+        It races the round from a thread (in megakernel mode it arms the
+        round's one-shot flag boundary instead); where a preemption must
+        land for certain, tests place it with the region's ``on_chunk``
+        hook."""
         every = self.cfg.preempt_probe_every
         if not every:
             return
@@ -630,6 +632,12 @@ class ServingEngine:
         if shell is None:
             return
         self._rounds_since_probe = 0
+        if getattr(shell, "engine_mode", None) == "megakernel":
+            # a megakernel round is one launch with no host chunk boundary
+            # to race: arm the one-shot flag instead, and the launch exits
+            # at its first chunk boundary
+            task.preempt_at_boundary = 1
+            return
 
         def probe():
             deadline = time.perf_counter() + 5.0

@@ -70,13 +70,17 @@ def unpreempted(img):
     return t.result
 
 
-@pytest.mark.parametrize("engine", ["pipelined", "sync"])
+@pytest.mark.parametrize("engine", ["pipelined", "sync", "megakernel"])
 def test_same_region_resume_is_bit_identical(img, unpreempted, engine):
     t, rep = _run(img, 3, hook=_once(lambda r, t: r.request_preempt()),
                   engine=engine)
     assert t.n_preemptions == 1 and rep["preemptions"] == 1
     assert t.region_history == [0, 0]
     assert rep["host_spills_avoided"] == 1  # resumed from device memory
+    # megakernel: the request after chunk 1 of the launch's plain version
+    # pops it through the flag; the resume is the second launch
+    assert rep["flag_poll_exits"] == (engine == "megakernel")
+    assert rep["megakernel_launches"] == 2 * (engine == "megakernel")
     for got, want in zip(t.result, unpreempted):
         np.testing.assert_array_equal(got, want)
 
@@ -217,13 +221,25 @@ class _ClusterLike:
 @pytest.mark.parametrize("kwargs,match", [
     ({"n_shells": 2}, "multi-shell"),
     ({"backend": _ClusterLike()}, "cluster frontend"),
-    ({"engine": "megakernel"}, "megakernel"),
     ({"scheduler_config": SchedulerConfig(checkpoint_path="x")},
      "checkpoints"),
 ])
 def test_later_slices_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         Client(n_regions=1, device="cpu", **kwargs)
+
+
+def test_megakernel_engine_serves_blur_bitwise(img, unpreempted):
+    """``Client(engine="megakernel", device="cpu")`` (refused before the
+    megakernel slice) serves a blur task in ONE launch of the persistent
+    entry's plain version, bitwise the pipelined engine's result, in as
+    many chunks."""
+    _, pipe = _run(img, 3)
+    t, rep = _run(img, 3, engine="megakernel")
+    assert rep["megakernel_launches"] == 1 and rep["flag_poll_exits"] == 0
+    assert rep["chunks"] == pipe["chunks"] and rep["preemptions"] == 0
+    for got, want in zip(t.result, unpreempted):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_client_wraps_a_shell_backend(img):

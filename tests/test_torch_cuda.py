@@ -1,7 +1,8 @@
-"""The port on the card: the hand-written CUDA kernels (blur, flash
-attention, decode attention, RG-LRU scan, RWKV-6) against their plain
-PyTorch versions, the Client's preempt/resume path through CUDA streams
-(the elastic pool's grow and drain among them),
+"""The port on the card: the hand-written CUDA kernels (blur, the
+persistent blur megakernel M1, flash attention, decode attention, RG-LRU
+scan, RWKV-6) against their plain PyTorch versions, the Client's
+preempt/resume path through CUDA streams (the elastic pool's grow and
+drain among them, and the megakernel engine's flag exits),
 token serving on the attention LM, and ``serve lm`` on the recurrent
 models.  A CUDA kernel has no CPU mode, so every test here carries the
 ``cuda`` marker and skips without a card.  This file imports nothing of
@@ -19,11 +20,15 @@ import numpy as np  # noqa: E402
 
 from repro_torch import Client  # noqa: E402
 from repro_torch.controller.kernels import get_kernel  # noqa: E402
+from repro_torch.core.context import ContextRecord  # noqa: E402
+from repro_torch.core.preemption import (PreemptFlag,  # noqa: E402
+                                         make_megakernel)
 from repro_torch.core.streams import mark_ready  # noqa: E402
 from repro_torch.core.task import Task  # noqa: E402
 from repro_torch.kernels.blur import kernel as K  # noqa: E402
 from repro_torch.kernels.blur import ops, ref  # noqa: E402
-from repro_torch.kernels.blur.tasks import ROW_BLOCK, make_image  # noqa: E402
+from repro_torch.kernels.blur.tasks import (KERNELS, ROW_BLOCK,  # noqa: E402
+                                            make_image, task_ints)
 from repro_torch.kernels.decode_attention import kernel as DK  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as dref  # noqa: E402
@@ -128,6 +133,125 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
                  "median")
     with pytest.raises(ValueError, match="halo"):
         K.launch(block, torch.empty(32, 130, device=cuda_device), "median")
+
+
+# -- M1, the persistent blur megakernel ---------------------------------------
+
+def _mega_images(dev, size, seed=0):
+    """The same padded image twice on the card: (kernel's, plain's)
+    ping/pong pairs."""
+    img = make_image(np.random.default_rng(seed), size)
+    a = (torch.tensor(img, device=dev), torch.zeros(img.shape, device=dev))
+    return a, tuple(x.clone() for x in a)
+
+
+def _mega_step(kind, mine, plain, ctx, iters, budget, flag, boundary):
+    """One launch of M1 and of its plain version (the host loop through
+    ``make_pipelined_chunk`` with B1) from ``ctx`` with the flag at
+    ``boundary``: equal context words, chunk counts, images and row
+    blocks.  Returns the context after it."""
+    flag.write(boundary)
+    before = K.ROW_BLOCKS[kind]
+    launches = K.MEGA_LAUNCHES[kind]
+    words, n = K.blur_mega(ctx.to_words(), *mine, kind, iters, budget,
+                           flag).result()
+    assert K.MEGA_LAUNCHES[kind] == launches + 1
+    assert flag.progress() == n  # the kernel's last boundary
+    rows = K.ROW_BLOCKS[kind] - before
+    h, w = mine[0].shape[0] - 2, mine[0].shape[1] - 2
+    got = make_megakernel(get_kernel(KERNELS[kind]))(
+        ctx, plain, task_ints(h, w, iters), None, budget, flag)
+    want, _, want_n = got.result()
+    torch.cuda.synchronize()
+    plain_rows = K.ROW_BLOCKS[kind] - before - rows
+    assert n == want_n
+    np.testing.assert_array_equal(words, want.to_words())
+    assert rows == plain_rows
+    for a, b in zip(mine, plain):
+        _check(kind, a, b)
+    flag.clear()
+    return want
+
+
+@pytest.mark.parametrize("kind", ["median", "gaussian"])
+@pytest.mark.parametrize("size", [30, 256, 4096])
+@pytest.mark.parametrize("budget", [1, 2, 8])
+def test_cuda_mega_matches_plain_version(cuda_device, kind, size, budget):
+    """A whole task in one launch of M1 against its plain version on the
+    card: context words, chunks, images (median bitwise, gaussian within
+    1e-6), and exactly ``iters x H/32`` row blocks."""
+    mine, plain = _mega_images(cuda_device, size, seed=size + budget)
+    flag = PreemptFlag(cuda_device)
+    before = K.ROW_BLOCKS[kind]
+    ctx = _mega_step(kind, mine, plain, ContextRecord.fresh(), 3, budget,
+                     flag, 0)
+    assert ctx.done == 1
+    n_rb = (mine[0].shape[0] - 2) // ROW_BLOCK
+    assert K.ROW_BLOCKS[kind] - before == 2 * 3 * n_rb  # M1's + plain's
+
+
+@pytest.mark.parametrize("kind", ["median", "gaussian"])
+def test_cuda_mega_flag_exit_at_every_boundary(cuda_device, kind):
+    """From a fresh context, the flag at each boundary ``k`` of a small
+    task, then a resume to completion; and the flag at boundary 1 of every
+    launch: after every exit M1 equals its plain version."""
+    flag = PreemptFlag(cuda_device)
+    mine, plain = _mega_images(cuda_device, 30)
+    ctx, exits = ContextRecord.fresh(), 0
+    while True:
+        ctx = _mega_step(kind, mine, plain, ctx, 3, 2, flag, 1)
+        if ctx.done:
+            break
+        exits += 1
+    assert exits >= 2
+    for k in range(1, exits + 1):
+        mine, plain = _mega_images(cuda_device, 30)
+        ctx = _mega_step(kind, mine, plain, ContextRecord.fresh(), 3, 2,
+                         flag, k)
+        assert ctx.done == 0
+        ctx = _mega_step(kind, mine, plain, ctx, 3, 2, flag, 0)
+        assert ctx.done == 1
+
+
+def test_cuda_mega_wrapper_rejects_bad_inputs(cuda_device):
+    flag = PreemptFlag(cuda_device)
+    img = torch.zeros(130, 130, device=cuda_device)
+    words = ContextRecord.fresh().to_words()
+    with pytest.raises(TypeError):
+        K.blur_mega(words, img.double(), img.double(), "median", 1, 1, flag)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        K.blur_mega(words, img[:100], img[:100].clone(), "median", 1, 1,
+                    flag)
+    with pytest.raises(ValueError, match="budget"):
+        K.blur_mega(words, img, img.clone(), "median", 1, 0, flag)
+    with pytest.raises(ValueError, match="PreemptFlag"):
+        K.blur_mega(words, img, img.clone(), "median", 1, 1, PreemptFlag())
+    with pytest.raises(ValueError, match="context words"):
+        K.blur_mega(words[:35], img, img.clone(), "median", 1, 1, flag)
+
+
+def test_cuda_client_megakernel_flag_exit_is_bit_identical(cuda_device):
+    """``Client(engine="megakernel")`` on the card: a task armed to exit
+    at boundary 2 resumes (a second launch), launches no B1, and equals
+    the pipelined engine's unpreempted run."""
+    img = make_image(np.random.default_rng(3), 200)
+    base, _, _ = _run(img)
+    client = Client(n_regions=1, chunk_budget=2, engine="megakernel")
+    try:
+        kd = get_kernel("MedianBlur")
+        task = Task(kernel="MedianBlur", args=kd.bundle(
+            img.copy(), np.zeros_like(img), H=200, W=200, iters=3))
+        task.preempt_at_boundary = 2
+        before = (K.MEGA_LAUNCHES.total(), K.LAUNCHES.total())
+        client.submit(task).result(timeout=TIMEOUT)
+        rep = client.report()
+    finally:
+        client.shutdown()
+    assert rep["megakernel_launches"] == 2 and rep["flag_poll_exits"] == 1
+    assert (K.MEGA_LAUNCHES.total() - before[0],
+            K.LAUNCHES.total() - before[1]) == (2, 0)  # M1 only
+    for got, exp in zip(task.result, base.result):
+        np.testing.assert_array_equal(got, exp)
 
 
 def _run(img, n_regions=1, hook=None):

@@ -1,6 +1,6 @@
 """The port stands alone: importing every ``repro_torch`` module (among
-them ``core.pool``, ``controller.controller`` and ``obs`` with its six
-modules) and ``chip_smoke.py``
+them ``core.pool``, ``controller.controller``, ``obs`` with its six
+modules and the megakernel engine's) and ``chip_smoke.py``
 brings in neither ``jax`` nor any ``repro.`` module."""
 import os
 import subprocess
@@ -24,7 +24,11 @@ for name in ("repro_torch.core.pool", "repro_torch.controller.controller",
              "repro_torch.obs", "repro_torch.obs.tracer",
              "repro_torch.obs.registry", "repro_torch.obs.metrics",
              "repro_torch.obs.export", "repro_torch.obs.exporter",
-             "repro_torch.obs.slo"):
+             "repro_torch.obs.slo",
+             # the megakernel engine's modules
+             "repro_torch.core.preemption", "repro_torch.core.region",
+             "repro_torch.kernels.blur.kernel", "repro_torch.kernels.blur.ops",
+             "repro_torch.kernels.blur.tasks"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)

@@ -1,6 +1,6 @@
 """The port's flight recorder (``repro_torch.obs``) against the reference's
-(``repro.obs``): the twins of ``tests/test_obs.py`` (all but its megakernel
-case, which waits for the megakernel engine), run on ``devices=["cpu"]``.
+(``repro.obs``): the twins of ``tests/test_obs.py``, run on
+``devices=["cpu"]``.
 
 - **Pure layers, bitwise.**  One event stream made from a numpy seed
   (submit, queue, dispatch, reconfig, icap, compile, chunk, run,
@@ -19,6 +19,10 @@ case, which waits for the megakernel engine), run on ``devices=["cpu"]``.
   its report's ``trace`` section, the chunk events against
   ``stats.chunks``, and its outputs bitwise against an untraced run.
 - ``tools/trace_report.py`` reads the port's Chrome trace unchanged.
+- **The megakernel's preemption response**, the twin of
+  ``test_megakernel_preempt_response_bounded``: the request lands after
+  chunk 3 of the launch's plain version, placed by ``on_chunk`` instead of
+  a timer, and the trace's response must stay within one chunk.
 """
 import json
 import subprocess
@@ -675,3 +679,74 @@ def test_trace_report_cli(bursty, tmp_path):
     assert diff.returncode == 0, diff.stderr
     parsed = json.loads(diff.stdout)
     assert str(p1) in parsed
+
+
+# -- the megakernel's preemption response --------------------------------------
+
+def test_megakernel_preempt_response_bounded():
+    """A preempt request in the middle of a megakernel launch (after chunk
+    3 of its plain version, from ``on_chunk``): the launch exits on the
+    flag at exactly that boundary, and the response the trace derives
+    (request -> flag-exit commit) is positive, finite and at most one
+    chunk's wall time, with the reference test's 50 ms of scheduling
+    slack."""
+    rng = np.random.default_rng(3)
+    size, iters = 256, 12
+
+    def big_task():
+        img = make_image(rng, size)
+        kd = P_kernels.get_kernel("MedianBlur")
+        return Task(kernel="MedianBlur",
+                    args=kd.bundle(img, np.zeros_like(img), H=size, W=size,
+                                   iters=iters))
+
+    def drive(shell, task):
+        region = shell.regions[0]
+        region.enqueue_reconfig(task)
+        region.enqueue_launch(task)
+        t0 = time.perf_counter()
+        while True:
+            assert time.perf_counter() - t0 < 120.0, f"stuck: {task}"
+            ev = shell.interrupts.wait(0.25)
+            if ev is None:
+                continue
+            assert ev.kind is not EventKind.REGION_FAILED, ev
+            if ev.kind is EventKind.TASK_DONE:
+                break
+            if ev.kind is EventKind.TASK_PREEMPTED:
+                region.cancel_preempt()
+                region.enqueue_reconfig(task)
+                region.enqueue_launch(task)
+        return time.perf_counter() - t0
+
+    tracer = Tracer()
+    shell = Shell(n_regions=1, chunk_budget=1, engine="megakernel",
+                  prefetch=False, tracer=tracer, devices=["cpu"])
+    try:
+        region = shell.regions[0]
+        wall = drive(shell, big_task())  # calibrates the per-chunk wall
+        chunks = region.stats.chunks
+        per_chunk = wall / chunks
+        tracer.clear()
+        seen = [0]
+
+        def preempt_after_chunk_3(r, task):
+            seen[0] += 1
+            if seen[0] == 3:
+                r.request_preempt()
+
+        region.on_chunk = preempt_after_chunk_3
+        drive(shell, big_task())
+        assert region.stats.flag_poll_exits == 1
+        assert region.stats.megakernel_launches == 3  # 1 + preempted + resumed
+        assert region.stats.chunks == 2 * chunks
+        launches = [e for e in tracer.events() if e.kind == "mega_launch"]
+        assert [e.attrs["n_chunks"] for e in launches] == [3, chunks - 3]
+        assert [e.attrs["done"] for e in launches] == [0, 1]
+    finally:
+        shell.shutdown()
+    resp = derive_metrics(tracer.events())["preempt_response"]
+    assert resp["n"] == 1
+    assert 0.0 < resp["max_s"] < float("inf")
+    assert resp["max_s"] <= per_chunk + 0.05, (
+        f"response {resp['max_s']:.4f}s vs per-chunk {per_chunk:.4f}s")

@@ -432,20 +432,39 @@ def test_all_regions_dead_raises(side):
 
 
 def test_straggler_migration():
-    """A region 50x slower than its peer must lose its task to migration;
-    every result equals the reference's oracle."""
+    """A region whose chunks read 50x slower than its peer's must lose its
+    task to migration; every result equals the reference's oracle.  The
+    straggler is made without the wall clock: from its third chunk on, its
+    ``on_chunk`` hook sets its chunk EWMA to 50x the other region's and
+    holds the worker at that boundary until the scheduler has asked for
+    the preemption (once), so detection never races the task's end."""
     rng = np.random.default_rng(4)
     imgs = [make_image(rng, SIZE) for _ in range(6)]
     tasks = [_task(PORT, im, iters=3) for im in imgs]
     shell = P_shell.Shell(n_regions=2, chunk_budget=1, devices=["cpu"])
+    fast, slow = shell.regions
+    asked = threading.Event()
+
+    def straggle(region, task):
+        if region.stats.chunks < 3 or asked.is_set():
+            return
+        # the scheduler reads the EWMAs of both regions once each has
+        # retired 3 chunks: wait for the peer's history too
+        _wait_for(lambda: fast.stats.chunks >= 3 and
+                  fast.stats.chunk_ewma_s > 0)
+        region.stats.chunk_ewma_s = 50 * fast.stats.chunk_ewma_s
+        if _wait_for(region._preempt.is_set):
+            asked.set()
+
+    slow.on_chunk = straggle
     try:
         shell.engine.prewarm("MedianBlur", tasks[0].args, (1,))
-        shell.regions[1].slowdown_s = 0.05  # straggler
         sched = P_scheduler.Scheduler(shell, P_scheduler.SchedulerConfig(
             preemption=True, straggler_factor=5.0))
         rep = sched.run(tasks, quiet=True)
     finally:
         shell.shutdown()
+    assert asked.is_set(), "the scheduler never asked the straggler"
     assert rep["n_done"] == 6
     assert rep["migrations"] >= 1, "straggler was never migrated"
     for t, im in zip(tasks, imgs):
