@@ -10,13 +10,15 @@
     repro_torch.Client(n_regions=2, device="cpu")        # plain kernels
     repro_torch.Client(serving={"lm": "attention"})      # paged-KV LM
     repro_torch.Client(backend=Scheduler(shell, pool=RegionPool(shell)))
+    repro_torch.Client(n_shells=2)                       # cluster fabric
+    repro_torch.Client(backend=ClusterFrontend(...))     # ... adopted
     repro_torch.Client(tracer=Tracer(), metrics=MetricsRegistry())
 
-``submit(task) -> TaskHandle``, ``launch(kernel, hittiles, ...)`` and
-``stream(prompt) -> SequenceHandle`` bind to one shell's scheduler, with or
-without an elastic pool behind it.  Multi-shell clusters (``n_shells > 1``
-or a cluster frontend as ``backend``) come with a later slice of the port
-and raise ``NotImplementedError`` until then.
+``submit(task) -> handle``, ``launch(kernel, hittiles, ...)`` and
+``stream(prompt) -> SequenceHandle`` bind uniformly: the handle API is the
+same whether the work lands on one shell's scheduler (with or without an
+elastic pool) or on a cluster frontend (``repro_torch.cluster``) — the
+Client hides which.
 """
 from __future__ import annotations
 
@@ -31,54 +33,68 @@ from repro_torch.core.task import Task
 
 
 class Client:
-    """Submission facade over one Shell + Scheduler.
+    """Submission facade over Shell / Scheduler / cluster.
 
     Exactly one backend is bound per Client:
 
-    - ``backend=None`` (default): builds ``Shell(n_regions, ...)`` on
-      ``device`` (``None`` = ``cuda:0``; raises without CUDA) and a
+    - ``backend=None`` (default): builds, on ``device`` (``None`` =
+      ``cuda:0``; raises without CUDA), ``Shell(n_regions, ...)`` and a
       ``Scheduler`` whose ``run_forever`` loop runs on a thread of its
-      own; the Client owns both.
+      own (``n_shells=1``), or a ``ClusterFrontend`` of ``n_shells``
+      shells of ``n_regions`` regions each; the Client owns them.
     - ``backend=Shell``: wraps it in a ``Scheduler`` (the Client owns the
       loop, not the shell).
     - ``backend=Scheduler``: adopts it (a pool-backed one included); if
       its loop is not serving, the Client starts (and owns) a
       ``run_forever`` thread.
+    - ``backend=ClusterFrontend`` (anything with ``submit`` +
+      ``shutdown``): adopts it as-is.
 
     ``serving`` (a ``ServingConfig``, or a kwargs dict for one — e.g.
     ``serving={"lm": "attention"}`` to stream from the paged-KV attention
     backend) configures the lazily-created token-serving engine behind
-    ``stream()``; its LM lives on the shell's device.
+    ``stream()``; its LM lives on the (first node's) shell's device.
 
     ``tracer=`` and ``metrics=`` (``repro_torch.obs``) pass through
-    ``shell_kwargs`` to the ``Shell``; the scheduler and the serving engine
-    adopt them from there."""
+    ``shell_kwargs`` to the ``Shell`` (or the frontend, which hands them to
+    every node's shell); the scheduler, frontend and serving engine adopt
+    them from there."""
 
     def __init__(self, backend=None, *, n_regions: int = 2,
                  n_shells: int = 1,
                  scheduler_config: Optional[SchedulerConfig] = None,
                  device=None, serving=None, **shell_kwargs):
-        if n_shells != 1:
-            raise NotImplementedError(
-                "multi-shell clusters (n_shells > 1) are not ported yet")
         self._own_shell = False
+        self._own_cluster = False
         self._own_loop = False
         self._loop_thread: Optional[threading.Thread] = None
         self._serving_cfg = serving
         self._engine = None
         self._engine_lock = threading.Lock()
+        self.shell: Optional[Shell] = None
+        self.scheduler: Optional[Scheduler] = None
+        self.cluster = None
 
         if backend is None:
             devices = None if device is None else [device]
-            self.shell = Shell(n_regions=n_regions, devices=devices,
-                               **shell_kwargs)
-            self._own_shell = True
-            try:
-                self.scheduler = Scheduler(self.shell, scheduler_config)
-            except BaseException:
-                self.shell.shutdown()  # a refused config leaks no workers
-                raise
-            self._start_loop()
+            if n_shells > 1:
+                from repro_torch.cluster.frontend import ClusterFrontend
+
+                self.cluster = ClusterFrontend(
+                    n_shells=n_shells, regions_per_shell=n_regions,
+                    config=scheduler_config, devices=devices,
+                    **shell_kwargs)
+                self._own_cluster = True
+            else:
+                self.shell = Shell(n_regions=n_regions, devices=devices,
+                                   **shell_kwargs)
+                self._own_shell = True
+                try:
+                    self.scheduler = Scheduler(self.shell, scheduler_config)
+                except BaseException:
+                    self.shell.shutdown()  # a refused config leaks no workers
+                    raise
+                self._start_loop()
         elif isinstance(backend, Shell):
             self.shell = backend
             self.scheduler = Scheduler(backend, scheduler_config)
@@ -89,13 +105,11 @@ class Client:
             if not backend.serving:
                 self._start_loop()
         elif hasattr(backend, "submit") and hasattr(backend, "shutdown"):
-            raise NotImplementedError(
-                "a cluster frontend as the backend (multi-shell clusters) "
-                "is not ported yet")
+            self.cluster = backend
         else:
             raise TypeError(
-                f"backend must be a Shell, Scheduler, or None; got "
-                f"{type(backend).__name__}")
+                f"backend must be a Shell, Scheduler, cluster frontend, or "
+                f"None; got {type(backend).__name__}")
 
     def _start_loop(self):
         self._own_loop = True
@@ -106,10 +120,18 @@ class Client:
         if not self.scheduler.wait_until_serving(10.0):
             raise RuntimeError("scheduler loop failed to start")
 
+    @property
+    def backend(self):
+        """Whatever ``submit`` goes to: the cluster frontend or the
+        scheduler."""
+        return self.cluster if self.cluster is not None else self.scheduler
+
     # -- task submission -------------------------------------------------
     def submit(self, task: Task):
-        """Submit a prepared ``Task``; returns its ``TaskHandle``."""
-        return self.scheduler.submit(task)
+        """Submit a prepared ``Task``; returns its future (a ``TaskHandle``
+        or ``ClusterTaskHandle`` — same wait/result/cancel surface either
+        way)."""
+        return self.backend.submit(task)
 
     def launch(self, kernel: str, hittiles: Seq = (), priority: int = 4,
                tenant: str = "default", **scalars):
@@ -136,7 +158,7 @@ class Client:
                 cfg = self._serving_cfg or ServingConfig()
                 if isinstance(cfg, dict):
                     cfg = ServingConfig(**cfg)
-                self._engine = ServingEngine(self.scheduler, cfg).start()
+                self._engine = ServingEngine(self.backend, cfg).start()
             return self._engine
 
     def stream(self, prompt, params=None, tenant: str = "default",
@@ -164,13 +186,13 @@ class Client:
     def tracer(self):
         """The flight recorder threaded through the backend (``tracer=``
         shell kwarg), or ``None`` when tracing is off."""
-        return getattr(self.scheduler, "tracer", None)
+        return getattr(self.backend, "tracer", None)
 
     @property
     def metrics(self):
         """The live metrics registry threaded through the backend
         (``metrics=`` shell kwarg), or ``None`` when telemetry is off."""
-        return getattr(self.scheduler, "metrics", None)
+        return getattr(self.backend, "metrics", None)
 
     @property
     def alerts(self) -> list:
@@ -181,9 +203,9 @@ class Client:
         return mon.alerts() if mon is not None else []
 
     def report(self) -> dict:
-        """The scheduler's versioned report (layer ``scheduler``; see
-        ``core/reporting.py``)."""
-        return self.scheduler.report()
+        """The backend's versioned report (layer ``scheduler`` or
+        ``cluster``; see ``core/reporting.py``)."""
+        return self.backend.report()
 
     def serving_report(self) -> Optional[dict]:
         """The serving engine's report (layer ``serving``), or ``None``
@@ -193,12 +215,17 @@ class Client:
 
     # -- lifecycle -------------------------------------------------------
     def drain(self, timeout: Optional[float] = None) -> dict:
-        """Graceful stop: finish all submitted tasks, then stop whatever
-        this Client owns.  Returns the final report."""
+        """Graceful stop: finish all streamed sequences and submitted
+        tasks, then stop whatever this Client owns.  Returns the final
+        backend report."""
         with self._engine_lock:
             engine = self._engine
         if engine is not None:
             engine.drain(timeout)
+        if self.cluster is not None:
+            if self._own_cluster:
+                return self.cluster.shutdown() or self.report()
+            return self.cluster.drain(timeout) or self.report()
         rep = None
         if self._own_loop:
             rep = self.scheduler.drain(timeout)
@@ -214,7 +241,10 @@ class Client:
         if engine is not None:
             engine.shutdown(timeout)
         rep = None
-        if self._own_loop:
+        if self.cluster is not None:
+            if self._own_cluster:
+                rep = self.cluster.shutdown()
+        elif self._own_loop:
             rep = self.scheduler.shutdown(timeout)
         if self._own_shell:
             self.shell.shutdown()

@@ -22,6 +22,11 @@ chunk.  A megakernel launch on the card takes the record by value as
 on the device, and the host record is rebuilt from the words it writes
 back (``from_words``).
 
+``ContextRecord`` is a pytree node (``torch.utils._pytree``) whose children
+are its fields in ``_FIELDS`` order as int32 numpy, the reference's leaves;
+rebuilt from them, its scalars come back as Python ints.  That is how a
+commit crosses the checkpoint store (``repro_torch.ckpt``).
+
 ``ContextBank`` keeps the committed copy with the paper's ``valid``-flag
 protocol realized as a double-buffered commit: a crash or preemption
 *during* a save leaves the previous buffer valid.
@@ -38,6 +43,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 N_CTX = 8  # compile-time N of the paper's prototype ("up to N integers")
 
@@ -146,6 +152,13 @@ class ContextRecord:
         kw.update({f: int(w[len(_ARRAYS) * N_CTX + i])
                    for i, f in enumerate(_FIELDS[len(_ARRAYS):])})
         return cls(**kw)
+
+
+pytree.register_pytree_node(
+    ContextRecord,
+    lambda c: (list(c.fields().values()), None),
+    lambda leaves, _: ContextRecord.from_fields(dict(zip(_FIELDS, leaves))),
+    serialized_type_name="repro_torch.core.context.ContextRecord")
 
 
 @dataclass

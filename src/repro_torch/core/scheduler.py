@@ -9,8 +9,8 @@
   ``drain()``/``shutdown()``.  The paper's batch ``run(tasks_to_arrive)``
   is a compatibility wrapper that replays arrivals through ``submit()``.
 - **Event loop** (this module): arrivals, dispatch, preemption plumbing,
-  straggler mitigation (chunk-latency EWMA -> preempt & migrate), and
-  elastic region failure/repair.
+  straggler mitigation (chunk-latency EWMA -> preempt & migrate), elastic
+  region failure/repair, and checkpoint/restart of scheduler state.
 
 An optional ``RegionPool`` (``core/pool.py``) makes the region list itself
 elastic: the loop ticks the pool once per iteration, so autoscaler
@@ -22,9 +22,10 @@ The scheduler adopts the shell's flight recorder and metrics registry
 (``repro_torch.obs``): it emits ``submit``, ``queue`` and ``dispatch`` on
 the ``("sched", 0)`` track and the per-tenant task counters and latency
 histograms, and its report carries ``trace_section``/``telemetry_section``
-(``{"enabled": False}`` without them).  Not ported yet, each with its own
-later slice: cross-shell handoffs and scheduler checkpoints
-(``checkpoint_path`` raises).
+(``{"enabled": False}`` without them).  A cluster frontend
+(``repro_torch.cluster``) takes a task off this shell through
+``request_handoff``: its next checkpoint preemption hands it over instead
+of requeueing it.
 
 Serve steps (paper):
   (1) find an available region;
@@ -76,7 +77,8 @@ class SchedulerConfig:
     straggler_factor: Optional[float] = None
     # auto-repair failed regions after this many seconds (None = stay dead).
     repair_after_s: Optional[float] = None
-    checkpoint_path: Optional[str] = None  # not ported yet: must stay None
+    checkpoint_path: Optional[str] = None  # periodic scheduler checkpoints
+    checkpoint_every_s: float = 5.0
     # async bitstream prefetch: queued tasks (policy lookahead order) are
     # hinted to the shell's background prefetcher, which generates their
     # bitstreams off the dispatch path (the paper's latency-hiding §4.2).
@@ -108,10 +110,10 @@ class SchedulerConfig:
         if self.n_priorities < 1:
             raise ValueError(
                 f"n_priorities must be >= 1, got {self.n_priorities}")
-        if self.checkpoint_path is not None:
-            raise NotImplementedError(
-                "scheduler checkpoints (repro.ckpt) are not ported yet; "
-                "leave checkpoint_path=None")
+        if self.checkpoint_every_s < 0:
+            raise ValueError(
+                f"checkpoint_every_s must be >= 0, got "
+                f"{self.checkpoint_every_s}")
         if self.prefetch_lookahead < 1:
             raise ValueError(
                 f"prefetch_lookahead must be >= 1, got "
@@ -186,6 +188,7 @@ class Scheduler:
         # finished list; the autoscaler reads this O(1) counter every tick)
         self.deadline_misses_total = 0
         self._dead_since = {}
+        self._last_ckpt = 0.0
         # debugging trace, bounded so server mode cannot grow it forever
         self.events_log: deque = deque(maxlen=65536)
         self.last_report: Optional[dict] = None
@@ -203,6 +206,13 @@ class Scheduler:
         self._stranded = 0
         # same-bitstream back-to-back dispatches (reconfig+requeue saved)
         self.coalesced_dispatches = 0
+        # cross-shell handoffs (cluster migration): tid -> callback(task).
+        # When a registered task is next checkpoint-preempted, the loop
+        # resolves its local handle, skips the local requeue, and hands the
+        # task (context committed, handle settled) to the callback instead.
+        self._handoffs: dict = {}
+        self._handoffs_lock = threading.Lock()
+        self.migrated_out = 0
         self._running = False
         # serializes run_forever() startup against drain()/shutdown() so a
         # concurrent stop request cannot be erased mid-startup
@@ -239,6 +249,23 @@ class Scheduler:
                       priority=task.priority).inc()
         return self._submissions.submit(task)
 
+    def request_handoff(self, tid: int, callback) -> None:
+        """Register a cross-shell migration: the next time task ``tid`` is
+        checkpoint-preempted, the loop hands it to ``callback(task)``
+        (saved context committed, local handle resolved as migrated)
+        instead of requeueing it locally.  Thread-safe; ``callback`` runs
+        on the loop thread and must be cheap and non-blocking.  The caller
+        still has to trigger the preemption itself (and should
+        ``cancel_handoff`` on timeout)."""
+        with self._handoffs_lock:
+            self._handoffs[tid] = callback
+
+    def cancel_handoff(self, tid: int) -> bool:
+        """Withdraw a pending handoff; False if it already fired (the
+        callback owns the task) or none was registered."""
+        with self._handoffs_lock:
+            return self._handoffs.pop(tid, None) is not None
+
     def run(self, tasks_to_arrive: List[Task], quiet: bool = True,
             handles: Optional[dict] = None) -> dict:
         """Paper batch mode (Algorithm 1): replay ``tasks_to_arrive``
@@ -273,6 +300,7 @@ class Scheduler:
                 self._drain_req.clear()
             self._loop_done.clear()
         self.t0 = time.perf_counter()
+        self._last_ckpt = 0.0
         self._idle_hint.clear()
         self._unsettled.clear()
         self._serving.set()   # t0 is valid: now() / deadline_s make sense
@@ -378,6 +406,7 @@ class Scheduler:
                 self.pool.tick(self)
             self._check_stragglers()
             self._maybe_repair()
+            self._maybe_checkpoint()
 
             timeout = ((self._arrivals[0][0] - self.now())
                        if self._arrivals else 0.5)
@@ -592,8 +621,21 @@ class Scheduler:
             self._settle(ev)
             if self.shell.region(ev.region_id).dispatchable:
                 self._idle_hint.add(ev.region_id)
-            self._enqueue(ev.task, requeue=True)  # paper: enqueue the
-            if not quiet:                         # stopped task
+            with self._handoffs_lock:
+                handoff = self._handoffs.pop(ev.task.tid, None)
+            if handoff is not None:
+                # cross-shell migration: settle the local handle and give
+                # the checkpointed task to the cluster layer instead of
+                # requeueing it here
+                with self._handles_lock:
+                    handle = self._handles.pop(ev.task.tid, None)
+                if handle is not None:
+                    handle._migrate_out()
+                self.migrated_out += 1
+                handoff(ev.task)
+            else:
+                self._enqueue(ev.task, requeue=True)  # paper: enqueue the
+            if not quiet:                             # stopped task
                 print(f"[{self.now():7.3f}] preempt {ev.task} off R{ev.region_id}")
         elif ev.kind == EventKind.REGION_FAILED:
             region = self.shell.region(ev.region_id)
@@ -799,6 +841,16 @@ class Scheduler:
                             self._enqueue(task, requeue=True)
                 del self._dead_since[rid]
 
+    def _maybe_checkpoint(self):
+        if not self.cfg.checkpoint_path:
+            return
+        if self.now() - self._last_ckpt < self.cfg.checkpoint_every_s:
+            return
+        from repro_torch.ckpt.store import save_scheduler_checkpoint
+
+        save_scheduler_checkpoint(self.cfg.checkpoint_path, self)
+        self._last_ckpt = self.now()
+
     # ------------------------------------------------------------------
     @staticmethod
     def _percentile(sorted_vals: List[float], q: float) -> float:
@@ -931,6 +983,7 @@ class Scheduler:
             "stranded_handles": self._stranded,
             "preemptions": sum(t.n_preemptions for t in tasks),
             "migrations": sum(t.n_migrations for t in tasks),
+            "migrated_out": self.migrated_out,
             # chunk-pipeline + coalescing accounting (DESIGN.md §8)
             "chunks": sum(r.stats.chunks for r in regions_ever),
             "chunks_pipelined": sum(r.stats.chunks_pipelined

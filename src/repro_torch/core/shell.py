@@ -159,13 +159,17 @@ class Shell:
     def shutdown(self):
         """Stop every background thread this shell owns: the prefetcher and
         all region workers, including retired and failed regions, whose
-        join is a no-op.  Idempotent."""
+        join is a no-op; then wait for everything issued on the regions'
+        streams (a failed region may leave launches queued).  Idempotent."""
         if self._shutdown:
             return
         self._shutdown = True
         self.prefetcher.stop()
         for r in self._by_rid.values():
             r.shutdown()
+        for r in self._by_rid.values():
+            if r._stream is not None:
+                r._stream.synchronize()
 
     def alive_regions(self) -> List[Region]:
         return [r for r in self.regions if r.alive]

@@ -251,9 +251,10 @@ class _Stats:
 
 
 class ServingEngine:
-    """Drives a scheduler-like backend (the port's ``Scheduler``: anything
-    with ``submit(task) -> handle`` and a ``shell``, whose first device
-    holds the LM's weights and state).  The backend's serving loop must
+    """Drives a scheduler-like backend (the port's ``Scheduler`` or
+    ``ClusterFrontend``: anything with ``submit(task) -> handle`` and a
+    ``shell``, or ``nodes`` of shells, whose first device holds the LM's
+    weights and state).  The backend's serving loop must
     already be running; the engine only adds its own driver thread on
     ``start()``."""
 
@@ -273,8 +274,10 @@ class ServingEngine:
         self.cfg = (config or ServingConfig()).validate()
         # the LM backend: builds prefill/decode bundles, owns the model
         # state threaded between tasks (hidden-state block or KV pools)
-        self.lm = make_lm(self.cfg, backend.shell.devices[0],
-                          metrics=self.metrics)
+        # a cluster frontend's LM lives on its first node's shell's device
+        shell = (backend.shell if hasattr(backend, "shell")
+                 else backend.nodes[0].shell)
+        self.lm = make_lm(self.cfg, shell.devices[0], metrics=self.metrics)
         self._slot_t0: List[Optional[float]] = [None] * self.cfg.max_slots
         self.stats = _Stats()
         self._lock = threading.Lock()

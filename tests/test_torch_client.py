@@ -1,7 +1,11 @@
 """The port's whole blur path on the CPU: Client -> Scheduler -> Shell ->
 Region -> chunk -> kernel.  Preemption points are placed deterministically
 through the region's ``on_chunk`` hook (no sleeps, no timing), and every
-preempted run must equal an unpreempted run of the port bitwise."""
+preempted run must equal an unpreempted run of the port bitwise.  The
+same holds behind a two-shell cluster frontend and with scheduler
+checkpoints on."""
+import json
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -208,25 +212,67 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         Shell(n_regions=1)
 
 
-class _ClusterLike:
-    """Duck-typed like a cluster frontend: ``submit`` and ``shutdown``."""
+def _cluster_client(kind, tmp_path):
+    """The three entry points the seventh slice opened, each on the CPU."""
+    if kind == "n_shells":
+        return Client(n_shells=2, n_regions=1, device="cpu", chunk_budget=1,
+                      prefetch=False)
+    if kind == "cluster_backend":
+        from repro_torch.cluster import ClusterFrontend
 
-    def submit(self, task):
-        raise AssertionError("never reached")
+        return Client(backend=ClusterFrontend(
+            n_shells=2, regions_per_shell=1, chunk_budget=1, prefetch=False,
+            devices=["cpu"]))
+    return Client(n_regions=1, device="cpu", chunk_budget=1, prefetch=False,
+                  scheduler_config=SchedulerConfig(
+                      checkpoint_path=str(tmp_path / "sched.json"),
+                      checkpoint_every_s=0.0))
 
-    def shutdown(self):
-        pass
+
+@pytest.mark.parametrize("kind", ["n_shells", "cluster_backend",
+                                  "checkpoint_path"])
+def test_cluster_and_checkpoint_paths_serve(kind, img, unpreempted,
+                                            tmp_path):
+    """``Client(n_shells=2)``, ``Client(backend=ClusterFrontend(...))`` and
+    ``SchedulerConfig(checkpoint_path=...)`` (each refused until the
+    cluster slice) serve blur tasks bitwise the unpreempted run; the
+    cluster spreads them over both shells and reports as one, and the
+    scheduler writes its checkpoint file."""
+    client = _cluster_client(kind, tmp_path)
+    try:
+        handles = [client.submit(_task("MedianBlur", img, 3))
+                   for _ in range(2)]
+        for h in handles:
+            for got, want in zip(h.result(timeout=TIMEOUT), unpreempted):
+                np.testing.assert_array_equal(got, want)
+        rep = client.drain(TIMEOUT)
+    finally:
+        client.shutdown()
+    assert rep["n_done"] == 2 and rep["stranded_handles"] == 0
+    if kind == "checkpoint_path":
+        assert rep["layer"] == "scheduler" and client.cluster is None
+        with open(tmp_path / "sched.json") as f:
+            doc = json.load(f)
+        assert set(doc) == {"queued", "policy", "finished", "t"}
+        assert doc["policy"] == "fcfs"
+    else:
+        assert rep["layer"] == "cluster" and client.shell is None
+        assert client.backend is client.cluster
+        assert sorted(h.node_history[0] for h in handles) == [0, 1]
+        assert all(not n.healthy for n in client.cluster.nodes)
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    ({"n_shells": 2}, "multi-shell"),
-    ({"backend": _ClusterLike()}, "cluster frontend"),
-    ({"scheduler_config": SchedulerConfig(checkpoint_path="x")},
-     "checkpoints"),
-])
-def test_later_slices_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        Client(n_regions=1, device="cpu", **kwargs)
+def test_cluster_client_streams_the_surrogate_oracle():
+    """``stream()`` over a cluster: the LM lives on the first node's
+    shell's device, and the tokens are the oracle's."""
+    from repro_torch.serving.kernels import oracle_stream
+
+    with Client(n_shells=2, n_regions=1, device="cpu") as client:
+        h = client.stream([1, 2, 3], max_new_tokens=4, seed=1)
+        assert h.result(timeout=TIMEOUT) == oracle_stream([1, 2, 3], 1, 4,
+                                                          64, 101)
+        assert client.serving.lm.device == torch.device("cpu")
+        assert client.serving_report()["engine_mode"] is None
 
 
 def test_megakernel_engine_serves_blur_bitwise(img, unpreempted):

@@ -2,7 +2,8 @@
 persistent blur megakernel M1, flash attention, decode attention, RG-LRU
 scan, RWKV-6) against their plain PyTorch versions, the Client's
 preempt/resume path through CUDA streams (the elastic pool's grow and
-drain among them, and the megakernel engine's flag exits),
+drain among them, the megakernel engine's flag exits, and a migration
+between two shells of a cluster frontend),
 token serving on the attention LM, and ``serve lm`` on the recurrent
 models.  A CUDA kernel has no CPU mode, so every test here carries the
 ``cuda`` marker and skips without a card.  This file imports nothing of
@@ -10,6 +11,7 @@ the JAX package, so it runs where JAX is absent:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import threading
 import time
 
 import pytest
@@ -317,6 +319,62 @@ def test_cuda_client_preempt_resume_is_bit_identical(cuda_device):
     for t in (same, cross):
         for got, exp in zip(t.result, base.result):
             np.testing.assert_array_equal(got, exp)
+
+
+@pytest.mark.parametrize("engine", ["pipelined", "megakernel"])
+def test_cuda_cluster_migration_is_bit_identical(cuda_device, engine):
+    """Two shells on cuda:0 behind a ``ClusterFrontend``: a running task is
+    checkpoint-migrated from shell 0 to shell 1 through the disk spill at
+    its first chunk boundary (pipelined: ``on_chunk`` holds the worker
+    there; megakernel: ``on_launch`` holds the M1 launch until the
+    migrator's request has written the flag, so it exits after one chunk)
+    and equals an unpreempted run bitwise.  Pipelined: every row block ran
+    once through B1.  Megakernel: two M1 launches, no B1."""
+    from repro_torch.cluster import ClusterFrontend
+
+    img = make_image(np.random.default_rng(3), 200)
+    base, _, _ = _run(img)
+    fe = ClusterFrontend(n_shells=2, regions_per_shell=1, chunk_budget=2,
+                         prefetch=False, engine=engine)  # cuda:0 default
+    kd = get_kernel("MedianBlur")
+    task = Task(kernel="MedianBlur", args=kd.bundle(
+        img.copy(), np.zeros_like(img), H=200, W=200, iters=3))
+    reached = threading.Event()
+
+    def hold(region, t):
+        if t is task and not reached.is_set():
+            reached.set()
+            deadline = time.perf_counter() + TIMEOUT
+            while (not region._preempt.is_set()
+                   and time.perf_counter() < deadline):
+                time.sleep(0.001)
+
+    for node in fe.nodes:
+        for r in node.shell.regions:
+            r.on_chunk = r.on_launch = hold
+    try:
+        before = (K.ROW_BLOCKS.total(), K.LAUNCHES.total(),
+                  K.MEGA_LAUNCHES.total())
+        h = fe.submit(task)
+        assert reached.wait(TIMEOUT)
+        assert fe.migrate(tid=task.tid)
+        out = h.result(timeout=TIMEOUT)
+        counts = (K.ROW_BLOCKS.total() - before[0],
+                  K.LAUNCHES.total() - before[1],
+                  K.MEGA_LAUNCHES.total() - before[2])
+        assert h.n_migrations == 1 and h.node_history == [0, 1]
+        src, dst = (n.shell.regions[0].stats for n in fe.nodes)
+    finally:
+        rep = fe.shutdown()
+    assert rep["stranded_handles"] == 0 and rep["lost_tasks"] == 0
+    assert rep["migrations_completed"] == 1
+    if engine == "megakernel":
+        assert counts[1:] == (0, 2) and src.flag_poll_exits == 1
+    else:
+        assert counts[0] == 3 * 8 and counts[2] == 0
+    assert dst.host_spills_avoided == 0
+    for got, exp in zip(out, base.result):
+        np.testing.assert_array_equal(got, exp)
 
 
 def test_cuda_pool_drain_resumes_on_a_grown_stream(cuda_device):

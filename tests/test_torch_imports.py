@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module (among
 them ``core.pool``, ``controller.controller``, ``obs`` with its six
-modules and the megakernel engine's) and ``chip_smoke.py``
+modules, the megakernel engine's, the cluster fabric and the checkpoint
+store) and ``chip_smoke.py``
 brings in neither ``jax`` nor any ``repro.`` module."""
 import os
 import subprocess
@@ -28,7 +29,11 @@ for name in ("repro_torch.core.pool", "repro_torch.controller.controller",
              # the megakernel engine's modules
              "repro_torch.core.preemption", "repro_torch.core.region",
              "repro_torch.kernels.blur.kernel", "repro_torch.kernels.blur.ops",
-             "repro_torch.kernels.blur.tasks"):
+             "repro_torch.kernels.blur.tasks",
+             # the cluster fabric and the checkpoint store
+             "repro_torch.cluster", "repro_torch.cluster.frontend",
+             "repro_torch.cluster.node", "repro_torch.cluster.router",
+             "repro_torch.ckpt", "repro_torch.ckpt.store"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)

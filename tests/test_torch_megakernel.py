@@ -19,12 +19,14 @@ over the chunk entry with the reference's stop rule).
 - the serving engine's preempt probe arms the one-shot flag in megakernel
   mode, and the streams stay equal to the oracle.
 
-``test_megakernel.py::test_flag_exit_cross_shell_migration`` waits for the
-cluster fabric (ROADMAP §A.4).  Tolerances: median images and every
+``test_megakernel.py::test_flag_exit_cross_shell_migration``'s twin
+migrates a running launch between the two CPU shells of a
+``ClusterFrontend`` at a boundary placed with ``on_chunk``.  Tolerances: median images and every
 context field bitwise; gaussian images within 1e-6 (the reference's,
 ``tests/test_kernels.py``: its Pallas blur runs in interpret mode, the
 port's plain version sums the same terms in the same order).
 """
+import threading
 import time
 from types import SimpleNamespace
 
@@ -218,6 +220,59 @@ def test_flag_exit_cross_region_materialize():
         assert stats[0].flag_poll_exits == 1
         assert stats[1].host_spills_avoided == 0
         _same("MedianBlur", got, want)
+
+
+@pytest.mark.parametrize("boundary", [1, 5])
+def test_flag_exit_cross_shell_migration(boundary):
+    """A RUNNING megakernel launch checkpoint-migrates across shells: the
+    frontend's handoff preempts it through the flag at the boundary the
+    driving thread chose (the plain loop's ``on_chunk`` holds the launch
+    there until the migrator has asked), the commit spills through the
+    checksummed checkpoint, and the launch resumed on the other shell
+    finishes bitwise the uninterrupted sync run's and the reference
+    megakernel's."""
+    from repro_torch.cluster import ClusterFrontend
+
+    img, iters = _img(11), 3
+    want, _, (s_stats,) = _run(PORT, img, iters=iters, engine="sync",
+                               budget=1)
+    ref, _, _ = _run(REF, img, iters=iters, budget=1)
+    fe = ClusterFrontend(n_shells=2, regions_per_shell=1, chunk_budget=1,
+                         rebalance=False, engine="megakernel",
+                         prefetch=False, devices=PORT.devices)
+    t = _task(PORT, img, iters=iters)
+    reached, seen = threading.Event(), [0]
+
+    def hold(region, task):
+        if task is not t or reached.is_set():
+            return
+        seen[0] += 1
+        if seen[0] == boundary:
+            reached.set()
+            deadline = time.perf_counter() + TIMEOUT
+            while (not region._preempt.is_set()
+                   and time.perf_counter() < deadline):
+                time.sleep(0.001)
+
+    for node in fe.nodes:
+        for r in node.shell.regions:
+            r.on_chunk = hold
+    try:
+        h = fe.submit(t)
+        assert reached.wait(TIMEOUT), "the launch never reached its hold"
+        assert fe.migrate(tid=t.tid), "forced migration never completed"
+        out = tuple(np.asarray(b) for b in h.result(timeout=TIMEOUT))
+        assert h.n_migrations == 1 and h.node_history == [0, 1]
+        src, dst = (n.shell.regions[0].stats for n in fe.nodes)
+        assert src.flag_poll_exits == 1 and src.chunks == boundary
+        assert src.megakernel_launches == dst.megakernel_launches == 1
+        assert dst.flag_poll_exits == 0 and dst.host_spills_avoided == 0
+        assert src.chunks + dst.chunks == s_stats.chunks
+        _same("MedianBlur", out, want)
+        _same("MedianBlur", out, ref)
+    finally:
+        rep = fe.shutdown()
+    assert rep["stranded_handles"] == 0 and rep["lost_tasks"] == 0
 
 
 @pytest.mark.parametrize("kernel", ["MedianBlur", "GaussianBlur"])

@@ -1,7 +1,6 @@
 """The port's reports against the versioned schema (``core/reporting.py``,
-a copy of the reference's): the twins of ``tests/test_report_schema.py``
-(all but its cluster case, which waits for the cluster fabric), run on
-``devices=["cpu"]``, and the ``trace``/``telemetry`` sections of a traced,
+a copy of the reference's): the twins of ``tests/test_report_schema.py``,
+run on ``devices=["cpu"]``, and the ``trace``/``telemetry`` sections of a traced,
 metered run laid out key for key as the reference's."""
 import numpy as np
 import pytest
@@ -66,6 +65,17 @@ def test_scheduler_and_shell_reports_documented():
         _check("shell_reconfig", shell.reconfig_report())
     finally:
         shell.shutdown()
+
+
+def test_cluster_report_documented():
+    from repro_torch.cluster import ClusterFrontend
+
+    fe = ClusterFrontend(n_shells=2, regions_per_shell=1, chunk_budget=2,
+                         rebalance=False, devices=["cpu"])
+    rep = fe.shutdown()
+    _check("cluster", rep)
+    for shell in rep["per_shell"].values():
+        assert shell["migrated_out"] == 0
 
 
 class _NullBackend:

@@ -10,9 +10,18 @@
   with the region's ``on_chunk`` hook (never with sleeps), resumed on the
   same region and on another one;
 - ``KVBlockPool`` accounting, ``Client.stream``, and a decode round
-  preempted in the reference and finished in the port.
+  preempted in the reference and finished in the port;
+- the twins of ``test_serving.py::
+  test_cross_shell_migration_mid_decode_bit_identical`` and
+  ``test_attention_serving.py::
+  test_decode_round_survives_cross_shell_migration``: a RUNNING decode
+  round (surrogate, then attention at the test geometry) checkpoint-
+  migrated between the two CPU shells of a ``ClusterFrontend`` at a chunk
+  boundary placed with ``on_chunk``, its payload (the attention round's
+  K/V pages and weights) through the checksummed spill.
 """
 import functools
+import os
 
 import pytest
 
@@ -430,3 +439,85 @@ def test_reference_preempted_decode_round_finishes_in_port(cut):
     assert ctx.done == 1
     _assert_ctx(ctx, full[-1][0], "at completion")
     _compare_attn_state(state, ref_final)
+
+
+# -- cross-shell migration of a decode round ------------------------------------
+
+def _migrated_round(name, args, kw, boundary, budget=1):
+    """One decode round through a two-shell ``ClusterFrontend`` on the CPU:
+    at the round's ``boundary``-th chunk the region's ``on_chunk`` hook
+    holds the worker until the driving thread's ``migrate`` has asked for
+    the preemption; the round resumes on the other shell from the spill.
+    Returns the result buffers and the frontend's report."""
+    import threading
+    import time
+
+    from repro_torch.cluster import ClusterFrontend
+    from repro_torch.core.task import Task
+
+    fe = ClusterFrontend(n_shells=2, regions_per_shell=1,
+                         chunk_budget=budget, rebalance=False,
+                         prefetch=False, devices=["cpu"])
+    t = Task(kernel=name, args=get_kernel(name).bundle(*args, **kw))
+    reached, seen = threading.Event(), [0]
+
+    def hold(region, task):
+        if task is not t or reached.is_set():
+            return
+        seen[0] += 1
+        if seen[0] == boundary:
+            reached.set()
+            deadline = time.perf_counter() + TIMEOUT
+            while (not region._preempt.is_set()
+                   and time.perf_counter() < deadline):
+                time.sleep(0.001)
+
+    for node in fe.nodes:
+        for r in node.shell.regions:
+            r.on_chunk = hold
+    try:
+        h = fe.submit(t)
+        assert reached.wait(TIMEOUT), "the round never reached its hold"
+        assert fe.migrate(tid=t.tid), "forced migration never completed"
+        out = h.result(timeout=TIMEOUT)
+        assert h.n_migrations == 1 and h.node_history == [0, 1]
+        spills = [f for f in os.listdir(fe.spill_dir)
+                  if f.startswith(f"task{t.tid}.") and f.endswith(".npz")]
+        assert len(spills) == 1
+    finally:
+        rep = fe.shutdown()
+    assert rep["stranded_handles"] == 0 and rep["lost_tasks"] == 0
+    assert rep["migrations_completed"] == 1
+    return out
+
+
+@pytest.mark.parametrize("boundary", [1, 3])
+def test_cross_shell_migration_mid_decode_bit_identical(boundary):
+    """A surrogate decode round migrated between shells mid-round streams
+    exactly the reference's tokens, state and slot table."""
+    ref_b, port_b = _surrogate_bundles(np.random.default_rng(1), R=6)
+    _, _, ref_state = _ref_chunks("SeqDecode", ref_b, 1)
+    args = tuple(np.asarray(b) for b in port_b.bufs)
+    kw = dict(S=3, D=D_MODEL, R=6, vocab=VOCAB)
+    out = _migrated_round("SeqDecode", args, kw, boundary)
+    for slot in range(3):
+        np.testing.assert_array_equal(np.asarray(out[slot]),
+                                      np.asarray(ref_state[slot]))
+
+
+@pytest.mark.parametrize("boundary", [2, 4])
+def test_decode_round_survives_cross_shell_migration(boundary):
+    """Spill the mid-round KV pages to the host (CRC-checked), carry them
+    to the other shell, finish there: bitwise the uninterrupted port run,
+    and the reference's tokens and tables (pools within 2e-5)."""
+    args, kw = _decode_args(seed=2)
+    name = A.register_attention_kernels(P)[1]
+    _, _, ref_final = _ref_chunks(
+        name, ref_get_kernel(name).bundle(*args, **kw), 1)
+    state, ints, floats = _port_state(get_kernel(name).bundle(*args, **kw))
+    _, want, _ = run_to_completion(get_kernel(name).fn, ContextRecord.fresh(),
+                                   state, ints, floats, 1)
+    out = _migrated_round(name, args, kw, boundary)
+    for a, b in zip(out[:4], want[:4]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    _compare_attn_state(out, ref_final)

@@ -2,8 +2,8 @@
 scenario: ``tests/test_system.py`` (the paper's use case, the deprecated
 ``Controller``), the region-failure and straggler scenarios of
 ``tests/test_fault_tolerance.py`` and the chunk-pipelined region engine of
-``tests/test_chunk_pipeline.py`` (its cross-shell migration waits for the
-cluster fabric).
+``tests/test_chunk_pipeline.py``, its cross-shell migration through the
+port's ``ClusterFrontend`` included.
 
 The same numpy inputs, made from a seed, go through both packages in this
 process.  Results are compared bitwise (median; gaussian within the
@@ -570,6 +570,60 @@ def test_same_region_resume_is_device_resident():
         assert committed.materialize() is host
     finally:
         shell.shutdown()
+
+
+def test_cross_shell_migration_consumes_lazy_spill(tmp_path):
+    """Checkpoint-migrating a *running* task to another shell consumes the
+    device-resident commit through the checksummed disk spill and resumes
+    bit-identically to an uninterrupted single-shell run.  The migration
+    lands at the task's second chunk boundary: the region's ``on_chunk``
+    holds the worker there until the driving thread's ``migrate`` has
+    asked for the preemption."""
+    import os
+
+    from repro_torch.ckpt.store import load_pytree
+    from repro_torch.cluster import ClusterFrontend
+
+    img = make_image(np.random.default_rng(11), SIZE)
+    ref, _ = _uninterrupted(REF, img, 3, 1)
+    want, _ = _uninterrupted(PORT, img, 3, 1)
+    fe = ClusterFrontend(n_shells=2, regions_per_shell=1, chunk_budget=1,
+                         rebalance=False, devices=PORT.default,
+                         spill_dir=str(tmp_path))
+    t = _task(PORT, img, iters=3)
+    reached = threading.Event()
+
+    def hold(region, task):
+        if task is t and not reached.is_set() and region.stats.chunks == 2:
+            reached.set()
+            _wait_for(region._preempt.is_set)
+
+    for node in fe.nodes:
+        for r in node.shell.regions:
+            r.on_chunk = hold
+    try:
+        h = fe.submit(t)
+        assert reached.wait(TIMEOUT)
+        assert fe.migrate(tid=t.tid), "forced migration never completed"
+        # the lazy commit was spilled through the on-disk checkpoint
+        src = fe.nodes[0].shell.regions[0].bank.restore()
+        assert src.device and src.tid == t.tid
+        spills = [f for f in os.listdir(fe.spill_dir)
+                  if f.startswith(f"task{t.tid}.") and f.endswith(".npz")]
+        assert spills == [f"task{t.tid}.hop0.migration.npz"]
+        host = src.materialize()
+        loaded = load_pytree(os.path.join(fe.spill_dir, spills[0]),
+                             {"context": host.context,
+                              "payload": host.payload})  # CRC-verified
+        for a, b in zip(loaded["payload"], host.payload):
+            np.testing.assert_array_equal(a, b)
+        out = tuple(np.asarray(b) for b in h.result(timeout=TIMEOUT))
+        assert h.n_migrations == 1
+        _same_results("MedianBlur", want, out)
+        _same_results("MedianBlur", ref, out)
+    finally:
+        rep = fe.shutdown()
+    assert rep["stranded_handles"] == 0 and rep["lost_tasks"] == 0
 
 
 def _coalescing(side, imgs, coalesce):
