@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. card: name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` builds every ``src/repro_torch/csrc/*.cu`` (blur with
    the persistent M1, the preempt flag, flash attention, decode attention,
-   RG-LRU scan, RWKV-6) for ``sm_90a``, one process per source, all at
+   RG-LRU scan, RWKV-6, the surrogate LM's persistent M2/M3) for
+   ``sm_90a``, one process per source, all at
    once, and prints each kernel's register and spill lines;
 3. kernel vs plain version on the card: median (bitwise) and gaussian
    (max abs difference <= 1e-6) on runs of 1, 7 and 8 row blocks at width
@@ -107,8 +108,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    chunk and per task (``torch.profiler``, by kernel name; else queued
    behind a spin kernel), each kind timed twice, beside B1's 8-block run,
    the bound and the plain version, with the grid and its cap, and two
-   regions' launches on two streams at once against one alone (less than
-   1.75x, where one after the other takes 2x);
+   regions' launches on two streams at once against one alone (the
+   medians of 21 interleaved reps each, less than 1.75x, where one after
+   the other takes 2x);
 5f. the cluster fabric and the checkpoint store (``[cluster]``): two
    shells of one region each on cuda:0 behind ``ClusterFrontend``
    (``chunk_budget=8``, 4096^2 f32 frames): (1) the main path's mix
@@ -132,6 +134,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    and 2 shells with one forced migration (the reference's
    ``measure_cluster`` arms): turnaround p50/p99 of each, the p99 ratio,
    ``migrated_bit_identical``; correctness asserted, no speed;
+5g. the surrogate LM's persistent kernels and the serve CLI's subcommands
+   (``[decode]``), at the surrogate's published scale (d_model 384, vocab
+   51865): (1) M2 (``seq_prefill_mega``) and M3 (``seq_decode_mega``)
+   against their plain versions (the host loop over the task body, on the
+   card) with the flag at every boundary of a small task at budgets 1, 2
+   and 4, then at random boundaries of tasks at the main path's shapes (a
+   128-token prompt; 32 slots of an 8-token round): context words, chunk
+   counts, the progress word and every buffer bitwise; (2) the main path:
+   ``repro_torch.launch.serve.serve_decode`` at 64 sequences, 32 slots,
+   8-token rounds, prompts 2-128, 2-64 new tokens, a probe every 3rd round,
+   megakernel: every stream equal to the oracle, the M2/M3 counts (zeroed
+   just before) exactly one a prefill and one a round dispatch, at least
+   one round exited on the flag; the same pipelined (no M2/M3 launch); the
+   reference's defaults (6 sequences) pipelined, megakernel, megakernel,
+   pipelined; the attention LM
+   pipelined once; ``serve_task_stream`` and ``serve_cluster`` at 4096^2 in
+   megakernel mode (images equal the plain version, M1 launched, B1
+   never); (3) tokens/s and TTFT p50/p99 at the main shape without probes,
+   pipelined, megakernel, megakernel, pipelined; (4) M2/M3's device time a
+   launch and a chunk beside the plain version and the bound, and the host
+   time from a flag write to a running M3 launch's exit;
 6. flash check: the flash-attention kernel against its plain version at the
    serving prefill shape (q [4, 32, 16, 128], k/v [4, 8, 128, 128] strided
    as the prefill passes them), q_offset 0 / 64 / 112, then at the edges of
@@ -295,7 +318,7 @@ MEGA_WAKE_SLACK_S = 2e-3
 MEGA_LATE_CHUNKS = 2
 MEGA_AB = ("pipelined", "megakernel", "megakernel", "pipelined",
            "pipelined", "megakernel")
-MEGA_SIDE_REPS = 5
+MEGA_SIDE_REPS = 21
 MEGA_SIDE_MAX = 1.75   # two launches one after the other take about 2x
 REPLACES_MEGA = "src/repro/core/preemption.py:174"
 # [cluster]: the pipelined hop lands at this chunk boundary of its task, the
@@ -305,7 +328,20 @@ CLUSTER_HOP_AT = 3
 CLUSTER_FAIL_AT = 4
 CLUSTER_MIGRATE_WAIT_S = 5.0
 LIBRARIES = ("blur", "preempt_flag", "flash_attention", "decode_attention",
-             "rglru_scan", "rwkv6")
+             "rglru_scan", "rwkv6", "seq_lm")
+# [decode]: the surrogate LM at its published scale, the reference's serve
+# decode defaults (src/repro/launch/serve.py:514-517: whisper-tiny's d_model
+# and vocabulary), and the main path's traffic
+SURROGATE = {"d_model": 384, "vocab": 51865}
+DECODE_MAIN = {"n_sequences": 64, "prompt_len": 128, "max_new": 64,
+               "slots": 32, "round_tokens": 8}
+DECODE_PREEMPT_EVERY = 3
+DECODE_AB = ("pipelined", "megakernel", "megakernel", "pipelined")
+SEQ_BUDGETS = (1, 2, 4)
+SEQ_RANDOM_TASKS = 3        # random-boundary tasks a kernel at the main shapes
+SEQ_LAG_STEPS = 200_000     # M3 steps of the flag-lag launch (never reached)
+SEQ_LAG_AT = 2000           # its progress when the host writes the flag
+SEQ_LAG_TRIALS = 5
 
 # the attention LM at Qwen3-8B's attention widths (src/repro/configs/qwen3_8b.py)
 SERVING = {"lm": "attention", "d_model": 4096, "vocab_size": 151936,
@@ -1609,21 +1645,30 @@ def mega_phase(rng, dev, imgs, b1_ms: dict) -> list:
     warm = on(0)
     warm.result()
     side_grid = warm.grid
-    t0 = time.perf_counter()
+    on(1).result()
+
+    def timed(launch):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        handles = launch()
+        for h in handles:
+            h.result()
+        return time.perf_counter() - t0
+
+    # alone and both interleaved, and each the median of its reps: a host
+    # hiccup in one rep (the host is shared) moves neither median
+    alones, boths = [], []
     for _ in range(MEGA_SIDE_REPS):
-        on(0).result()
-    alone = (time.perf_counter() - t0) / MEGA_SIDE_REPS
-    t0 = time.perf_counter()
-    for _ in range(MEGA_SIDE_REPS):
-        a, b = on(0), on(1)
-        a.result()
-        b.result()
-    both = (time.perf_counter() - t0) / MEGA_SIDE_REPS
+        alones.append(timed(lambda: (on(0),)))
+        boths.append(timed(lambda: (on(0), on(1))))
+    alone, both = statistics.median(alones), statistics.median(boths)
     log(f"[mega] two regions' M1 launches (each grid "
-        f"{side_grid['grid']}) on two streams at once: "
-        f"{both * 1e3:.4f} ms for both against {alone * 1e3:.4f} ms for one "
-        f"alone (ratio {both / alone:.3f}; one after the other would be "
-        f"about 2)")
+        f"{side_grid['grid']}) on two streams at once: median "
+        f"{both * 1e3:.4f} ms for both (range {min(boths) * 1e3:.4f}-"
+        f"{max(boths) * 1e3:.4f}) against {alone * 1e3:.4f} ms for one "
+        f"alone (range {min(alones) * 1e3:.4f}-{max(alones) * 1e3:.4f}), "
+        f"{MEGA_SIDE_REPS} interleaved reps each (ratio {both / alone:.3f}; "
+        f"one after the other would be about 2)")
     if both / alone >= MEGA_SIDE_MAX:
         raise AssertionError(f"[mega] two regions' launches took "
                              f"{both / alone:.3f}x one's: the second region "
@@ -2813,6 +2858,431 @@ def recurrent_phases(dev, card: str) -> list:
     return records
 
 
+# -- [decode]: M2/M3 and the serve CLI's subcommands -------------------------
+
+def _seq_buffers(kernel: str, dev, rng, d_model: int, vocab: int,
+                 prompt_len: int = 7, slots: int = 4, steps: int = 5):
+    """One surrogate task's buffers on the card, twice (M2/M3's and the
+    plain version's), and its scalars: a seeded prompt padded to 16s for
+    ``SeqPrefill``; for ``SeqDecode`` random states and slot rows of every
+    kind (live, fewer tokens than the round, inactive), row 0 live for the
+    whole round."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.kernels import init_state
+
+    if kernel == "SeqPrefill":
+        P = -(-prompt_len // 16) * 16
+        prompt = np.zeros((1, P), np.int32)
+        prompt[0, :prompt_len] = rng.integers(0, vocab, prompt_len)
+        bufs = (np.zeros((1, 8), np.int32),
+                init_state(int(rng.integers(1000)), d_model)[None], prompt)
+        scalars = dict(P=P, D=d_model, vocab=vocab, prompt_len=prompt_len)
+    else:
+        state = rng.integers(-2**31, 2**31, (slots, d_model),
+                             dtype=np.int64).astype(np.int32)
+        tbl = np.zeros((slots, 8), np.int32)
+        tbl[:, 0] = rng.integers(0, 2, slots)
+        tbl[:, 1] = rng.integers(0, steps + 1, slots)
+        tbl[0, :2] = (1, steps)
+        tbl[:, 2] = rng.integers(0, vocab, slots)
+        bufs = (np.full((slots, steps), -1, np.int32), state, tbl)
+        scalars = dict(S=slots, D=d_model, R=steps, vocab=vocab)
+    mine = tuple(torch.tensor(b, device=dev) for b in bufs)
+    return mine, tuple(b.clone() for b in mine), scalars
+
+
+def _seq_launch(kernel: str, words, bufs, scalars, budget: int, flag):
+    from repro_torch.kernels.seq_lm import kernel as QK
+
+    if kernel == "SeqPrefill":
+        return QK.seq_prefill_mega(words, *bufs, scalars["prompt_len"],
+                                   scalars["vocab"], budget, flag)
+    return QK.seq_decode_mega(words, *bufs, scalars["vocab"], budget, flag)
+
+
+def _seq_step(kernel: str, mine, plain, scalars, ctx, budget: int, flag,
+              boundary: int):
+    """One launch of M2/M3 and of its plain version (the host loop over the
+    task body, on the card) from ``ctx`` with the flag at ``boundary``:
+    equal context words, chunk counts and progress, buffers bitwise.
+    Returns (the context after it, max abs difference of the buffers)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.controller.kernels import get_kernel
+    from repro_torch.core.preemption import make_megakernel
+
+    kd = get_kernel(kernel)
+    flag.write(boundary)
+    words, n = _seq_launch(kernel, ctx.to_words(), mine, scalars, budget,
+                           flag).result()
+    progress = flag.progress()
+    _, ints, floats = kd.bundle(*mine, **scalars).padded()
+    want, _, want_n = make_megakernel(kd)(ctx, plain, ints, floats, budget,
+                                          flag).result()
+    torch.cuda.synchronize()
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in
+              zip(mine, plain))
+    if (n != want_n or progress != n or err != 0
+            or not np.array_equal(words, want.to_words())):
+        raise AssertionError(
+            f"[decode] {kernel} at boundary {boundary}, budget {budget}: "
+            f"chunks {n} / {want_n}, progress {progress}, buffers differ by "
+            f"{err}, context words equal "
+            f"{np.array_equal(words, want.to_words())}")
+    flag.clear()
+    return want, err
+
+
+def _seq_checks(dev, rng) -> dict:
+    """M2/M3 against their plain versions at the surrogate's published
+    scale: every boundary of a small task (the flag at boundary k of a
+    fresh task, then at k for every resume) at budgets 1, 2 and 4, then
+    random boundaries of tasks at the main path's shapes (a 128-token
+    prompt; 32 slots of an 8-token round) at budget 1.  Returns the
+    launches compared and the largest difference, per kernel."""
+    from repro_torch.core.context import ContextRecord
+    from repro_torch.core.preemption import PreemptFlag
+
+    flag = PreemptFlag(dev)
+    d, v = SURROGATE["d_model"], SURROGATE["vocab"]
+    out = {}
+    for kernel in ("SeqPrefill", "SeqDecode"):
+        steps = 7 if kernel == "SeqPrefill" else 5
+        n_launch, err = 0, 0
+        for budget in SEQ_BUDGETS:
+            for k in range(0, -(-steps // budget) + 1):
+                mine, plain, sc = _seq_buffers(kernel, dev, rng, d, v)
+                ctx = ContextRecord.fresh()
+                while not ctx.done:
+                    ctx, e = _seq_step(kernel, mine, plain, sc, ctx, budget,
+                                       flag, k)
+                    n_launch, err = n_launch + 1, max(err, e)
+        small = n_launch
+        shape = (dict(prompt_len=DECODE_MAIN["prompt_len"])
+                 if kernel == "SeqPrefill" else
+                 dict(slots=DECODE_MAIN["slots"],
+                      steps=DECODE_MAIN["round_tokens"]))
+        big = shape.get("prompt_len", shape.get("steps"))
+        for _ in range(SEQ_RANDOM_TASKS):
+            mine, plain, sc = _seq_buffers(kernel, dev, rng, d, v, **shape)
+            ctx = ContextRecord.fresh()
+            while not ctx.done:
+                ctx, e = _seq_step(kernel, mine, plain, sc, ctx, 1, flag,
+                                   int(rng.integers(1, big + 1)))
+                n_launch, err = n_launch + 1, max(err, e)
+        log(f"[decode] {kernel} ({'M2' if kernel == 'SeqPrefill' else 'M3'}) "
+            f"equals its plain version at d_model {d}, vocab {v}: {small} "
+            f"launches at every boundary of a {steps}-step task (budgets "
+            f"{SEQ_BUDGETS}), {n_launch - small} at random boundaries of "
+            f"{SEQ_RANDOM_TASKS} tasks of {shape}; max abs difference {err}")
+        out[kernel] = {"launches": n_launch, "err": err}
+    return out
+
+
+def _seq_counts() -> dict:
+    from repro_torch.kernels.seq_lm import kernel as QK
+
+    return {k: QK.MEGA_LAUNCHES[k] for k in ("SeqPrefill", "SeqDecode")}
+
+
+def _decode_run(tag: str, engine: str, preempt_every: int, **shape) -> dict:
+    """``serve_decode`` on cuda:0 (every stream verified against the
+    oracle inside it), with the M2/M3 counts zeroed just before and read
+    just after."""
+    from repro_torch.kernels.seq_lm import kernel as QK
+    from repro_torch.launch.serve import serve_decode
+
+    QK.MEGA_LAUNCHES.reset()
+    QK.STEPS.reset()
+    t0 = time.perf_counter()
+    try:
+        rep = serve_decode(engine=engine, preempt_every=preempt_every,
+                           quiet=True, **shape)
+    except SystemExit as e:  # a stream diverged from the oracle
+        raise AssertionError(f"[decode] {tag}: {e}") from None
+    wall = time.perf_counter() - t0
+    counts = _seq_counts()
+    log(f"[decode] {tag}, {engine}, preempt every {preempt_every}: "
+        f"{rep['n_finished']} sequences ({rep['lm']}), every stream equal to "
+        f"the oracle; {rep['tokens_out']} tokens at {rep['tokens_per_s']:.3f} "
+        f"tok/s, TTFT p50 {rep['ttft_p50_s'] * 1e3:.3f} ms / p99 "
+        f"{rep['ttft_p99_s'] * 1e3:.3f} ms; {rep['prefill_tasks']} prefills, "
+        f"{rep['decode_rounds']} rounds ({rep['state_device_rounds']} "
+        f"device-resident), {rep['decode_preemptions']} preempted; M2/M3 "
+        f"launches {counts}, steps "
+        f"{ {k: QK.STEPS[k] for k in counts} }; {wall:.3f} s")
+    rep["_counts"], rep["_wall_s"] = counts, wall
+    return rep
+
+
+def _require_seq_launches(tag: str, rep: dict, engine: str):
+    """In megakernel mode every prefill is one M2 launch and every round at
+    least one M3 launch, at most one more a preemption (a round preempted
+    before its dispatch launches nothing); elsewhere none."""
+    c = rep["_counts"]
+    if engine == "megakernel":
+        rounds = rep["decode_rounds"]
+        ok = (c["SeqPrefill"] == rep["prefill_tasks"]
+              and rounds <= c["SeqDecode"]
+              <= rounds + rep["decode_preemptions"])
+        want = (f"{rep['prefill_tasks']} M2, {rounds} to "
+                f"{rounds + rep['decode_preemptions']} M3")
+    else:
+        ok = c == {"SeqPrefill": 0, "SeqDecode": 0}
+        want = "none"
+    if not ok:
+        raise AssertionError(f"[decode] {tag}: M2/M3 launches {c}, "
+                             f"expected {want}")
+
+
+def _recording(cls, name: str, calls: list):
+    """Wrap ``cls.name`` to record each call's first argument and result;
+    returns the undo."""
+    orig = getattr(cls, name)
+
+    def wrapper(self, *args, **kw):
+        out = orig(self, *args, **kw)
+        calls.append((args[0] if args else None, out))
+        return out
+
+    setattr(cls, name, wrapper)
+    return lambda: setattr(cls, name, orig)
+
+
+def _blur_subcommands(dev) -> dict:
+    """``serve_task_stream`` and ``serve_cluster`` once each at 4096^2 in
+    megakernel mode: every image equal to the plain version on the card,
+    M1 launched and B1 never."""
+    import torch
+
+    from repro_torch.cluster.frontend import ClusterFrontend
+    from repro_torch.core.scheduler import Scheduler
+    from repro_torch.kernels.blur import kernel as K
+    from repro_torch.kernels.blur.tasks import result_image
+    from repro_torch.launch.serve import serve_cluster, serve_task_stream
+
+    out = {}
+    for tag, fn, cls, name in (
+            ("scheduler", serve_task_stream, Scheduler, "run"),
+            ("cluster", serve_cluster, ClusterFrontend, "submit")):
+        calls = []
+        undo = _recording(cls, name, calls)
+        _reset_counts()
+        t0 = time.perf_counter()
+        try:
+            rep = fn(size=SIZE, engine="megakernel", quiet=True)
+        finally:
+            undo()
+        wall = time.perf_counter() - t0
+        _, launches, mega = _counts()
+        if tag == "scheduler":
+            done = [(t, t.result) for t in calls[0][0]]
+        else:
+            done = [(t, h.result(timeout=0)) for t, h in calls]
+        err = 0.0
+        for t, res in done:
+            iters = int(t.args.ints[2])
+            t.result = res
+            kind = "median" if t.kernel == "MedianBlur" else "gaussian"
+            err = max(err, check(kind, torch.tensor(result_image(t, iters)),
+                                 _plain_image(t.args.bufs[0], iters,
+                                              t.kernel, dev)))
+        n = len(done)
+        log(f"[decode] serve {tag} at {SIZE}^2, megakernel: {rep['n_done']}/"
+            f"{n} tasks in {rep['wall_s']:.3f} s ({rep['throughput_tps']:.3f} "
+            f"tasks/s), turnaround p50 {rep['turnaround_p50_s']:.3f} s / p99 "
+            f"{rep['turnaround_p99_s']:.3f} s; M1 launches {mega}, B1 "
+            f"{launches}; every image equals the plain version (max abs "
+            f"error {err:.3e}); {wall:.3f} s")
+        if rep["n_done"] != n or sum(mega.values()) < n \
+                or sum(launches.values()) != 0:
+            raise AssertionError(f"[decode] serve {tag}: {rep['n_done']}/{n} "
+                                 f"done, M1 {mega}, B1 {launches}")
+        out[tag] = {"n_done": rep["n_done"], "wall_s": rep["wall_s"],
+                    "turnaround_p99_s": rep["turnaround_p99_s"],
+                    "m1_launches": mega}
+    return out
+
+
+def _seq_times(dev, rng, launches: dict, errs: dict) -> list:
+    """M2/M3's device time per launch and per chunk at the main path's
+    shapes and budget (a 128-token prompt, 128 chunks; a 32-slot round of 8
+    steps, 8 chunks), the plain version's (the host loop's torch kernels),
+    and the bound; then the host time from a flag write to a running
+    launch's exit."""
+    from repro_torch.core.context import ContextRecord
+    from repro_torch.core.preemption import PreemptFlag, make_megakernel
+    from repro_torch.controller.kernels import get_kernel
+    from repro_torch.kernels.seq_lm import kernel as QK
+
+    flag = PreemptFlag(dev)
+    fresh = ContextRecord.fresh()
+    d, v = SURROGATE["d_model"], SURROGATE["vocab"]
+    records = []
+    for kernel, name, shape in (
+            ("SeqPrefill", "seq_prefill_mega",
+             dict(prompt_len=DECODE_MAIN["prompt_len"])),
+            ("SeqDecode", "seq_decode_mega",
+             dict(slots=DECODE_MAIN["slots"],
+                  steps=DECODE_MAIN["round_tokens"]))):
+        mine, plain, sc = _seq_buffers(kernel, dev, rng, d, v, **shape)
+        kd = get_kernel(kernel)
+        _, ints, floats = kd.bundle(*plain, **sc).padded()
+        entry = make_megakernel(kd)
+        steps = shape.get("prompt_len", shape.get("steps"))
+        rows = shape.get("slots", 1)
+
+        def mega(kernel=kernel, mine=mine, sc=sc):
+            return _seq_launch(kernel, fresh.to_words(), mine, sc, 1, flag)
+
+        def host_loop(entry=entry, plain=plain, ints=ints, floats=floats):
+            entry(fresh, plain, ints, floats, 1, flag)
+
+        dev_ms, hows = {}, {}
+        for arm, fn, key, n in (("kernel", mega, "seq_mega_kernel", 1),
+                                ("plain", host_loop, None, None)):
+            dev_ms[arm] = (_named_ms(fn, key, n) if key else
+                           device_ms(fn))
+            hows[arm] = "torch.profiler"
+            if dev_ms[arm] <= 0.0:
+                dev_ms[arm] = queued_ms(fn, reps=5)
+                hows[arm] = "queued behind a spin kernel"
+        wall_ms = cuda_time_ms(mega, reps=20)
+        # the bytes one launch must move: the state read and written once,
+        # the prompt (M2) or the slots table and the round's tokens (M3)
+        state_b = rows * d * 4 * 2
+        extra = (sc.get("P", 0) * 4 + 4 if kernel == "SeqPrefill"
+                 else rows * 8 * 4 * 2 + rows * steps * 4)
+        bytes_ms = (state_b + extra) / HBM_BYTES_PER_S * 1e3
+        # 7 int32 operations an element a step (2 products, the injected
+        # term's product, 3 sums, the row sum), at the table's f32 rate
+        ops_ms = 7 * rows * d * steps / F32_OPS_PER_S * 1e3
+        step_ms = state_b / HBM_BYTES_PER_S * 1e3
+        log(f"[decode] {name} ({'M2' if kernel == 'SeqPrefill' else 'M3'}) "
+            f"{shape}, budget 1 ({steps} chunks a launch): "
+            f"{dev_ms['kernel']:.6f} ms device a launch ({hows['kernel']}), "
+            f"{dev_ms['kernel'] / steps * 1e3:.4f} us a chunk; wall (CUDA "
+            f"events, back to back) {wall_ms:.6f} ms a launch; the plain "
+            f"version (host loop, torch kernels) {dev_ms['plain']:.6f} ms "
+            f"device a task ({hows['plain']}); bound {max(bytes_ms, ops_ms) * 1e3:.4f} "
+            f"us a launch (bytes {bytes_ms * 1e3:.4f}, operations "
+            f"{ops_ms * 1e3:.4f}); the state's bytes a step "
+            f"{step_ms * 1e3:.4f} us: latency-bound, a step is a dependent "
+            f"chain")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/seq_lm.cu",
+            "replaces": REPLACES_MEGA,
+            "counterpart_of": f"make_megakernel (a lax.while_loop over "
+                              f"{'seq_prefill' if kernel == 'SeqPrefill' else 'seq_decode'}"
+                              f", src/repro/serving/kernels.py, not a "
+                              f"pallas_call)",
+            "launches": launches[kernel], "max_abs_err": errs[kernel],
+            "ms": dev_ms["kernel"], "per": f"launch of {steps} chunks",
+            "ms_per_chunk": dev_ms["kernel"] / steps,
+            "plain_ms": dev_ms["plain"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None})
+
+    # a flag write landing in a running M3 launch: the host spins on the
+    # launch's event, so the time is the card's answer, not a poll sleep
+    mine, _, sc = _seq_buffers("SeqDecode", dev, rng, d, v,
+                               slots=DECODE_MAIN["slots"],
+                               steps=SEQ_LAG_STEPS)
+    mine[2][:, 0] = 1                      # every row live all along
+    mine[2][:, 1] = SEQ_LAG_STEPS
+    lags = []
+    for _ in range(SEQ_LAG_TRIALS):
+        launch = _seq_launch("SeqDecode", fresh.to_words(), mine, sc, 1, flag)
+        if not _wait(lambda: flag.progress() >= SEQ_LAG_AT, timeout=30):
+            raise AssertionError("[decode] the lag launch never progressed")
+        flag.write(1)
+        t_w = time.perf_counter()
+        at = flag.progress()
+        while not launch.query():
+            pass
+        t_x = time.perf_counter()
+        _, n = launch.result()
+        flag.clear()
+        lags.append(((t_x - t_w) * 1e6, n - at))
+        if not 0 <= n - at <= 2 or n >= SEQ_LAG_STEPS:
+            raise AssertionError(f"[decode] the flag exit came {n - at} "
+                                 f"chunks after the write ({n} run)")
+    # the same launch armed before it starts: its call, one chunk and the
+    # event, with no flag write in flight
+    armed = []
+    for _ in range(SEQ_LAG_TRIALS):
+        flag.write(1)
+        t0 = time.perf_counter()
+        launch = _seq_launch("SeqDecode", fresh.to_words(), mine, sc, 1, flag)
+        while not launch.query():
+            pass
+        armed.append((time.perf_counter() - t0) * 1e6)
+        if launch.result()[1] != 1:
+            raise AssertionError("[decode] an armed launch ran past boundary 1")
+        flag.clear()
+    log(f"[decode] a flag write into a running M3 launch (32 slots, budget "
+        f"1): host write -> the launch's event seen "
+        f"{[round(t, 3) for t, _ in lags]} us, chunks after the device's "
+        f"published progress {[c for _, c in lags]}; a launch armed before "
+        f"it starts: call -> its event seen {[round(t, 3) for t in armed]} "
+        f"us")
+    records[-1]["flag_to_exit_us"] = [t for t, _ in lags]
+    return records
+
+
+def decode_phase(dev) -> tuple:
+    """[decode]: M2/M3 against their plain versions, the surrogate main
+    path (serve decode at 64 sequences, megakernel, probes every 3rd
+    round), its pipelined twin, the reference's defaults in both engines,
+    the attention LM once pipelined, the CLI's blur subcommands at 4096^2
+    in megakernel mode, the pipelined/megakernel A/B without probes, and
+    M2/M3's times.  Returns (kernel records, summary)."""
+    import numpy as np
+
+    rng = np.random.default_rng(24)
+    checked = _seq_checks(dev, rng)
+    main_shape = dict(DECODE_MAIN, **SURROGATE)
+    # the main path: counts zeroed inside, read right after
+    main = _decode_run("main", "megakernel", DECODE_PREEMPT_EVERY,
+                       **main_shape)
+    _require_seq_launches("main", main, "megakernel")
+    if main["decode_preemptions"] < 1:
+        raise AssertionError("[decode] no round exited on the flag")
+    launches = dict(main["_counts"])
+    piped = _decode_run("main", "pipelined", DECODE_PREEMPT_EVERY,
+                        **main_shape)
+    _require_seq_launches("main, pipelined", piped, "pipelined")
+    for engine in DECODE_AB:
+        rep = _decode_run("reference defaults", engine, 0)
+        _require_seq_launches("reference defaults", rep, engine)
+    _decode_run("attention LM (reference defaults)", "pipelined", 0,
+                lm="attention")
+    blur = _blur_subcommands(dev)
+    ab = {"pipelined": [], "megakernel": []}
+    for engine in DECODE_AB:
+        rep = _decode_run("A/B, no probes", engine, 0, **main_shape)
+        _require_seq_launches("A/B", rep, engine)
+        ab[engine].append({k: rep[k] for k in (
+            "tokens_per_s", "ttft_p50_s", "ttft_p99_s", "_wall_s")})
+    for engine, runs in ab.items():
+        log(f"[decode] A/B {engine}: tok/s "
+            f"{[round(r['tokens_per_s'], 3) for r in runs]}, TTFT p50 "
+            f"{[round(r['ttft_p50_s'] * 1e3, 3) for r in runs]} ms, p99 "
+            f"{[round(r['ttft_p99_s'] * 1e3, 3) for r in runs]} ms")
+    records = _seq_times(dev, rng, launches,
+                         {k: v["err"] for k, v in checked.items()})
+    summary = {"main": {k: main[k] for k in (
+        "tokens_per_s", "ttft_p50_s", "ttft_p99_s", "decode_preemptions",
+        "decode_rounds", "prefill_tasks")}, "ab": ab, "blur": blur,
+        "checked_launches": {k: v["launches"] for k, v in checked.items()}}
+    return records, summary
+
+
 def main() -> int:
     import torch
 
@@ -3057,6 +3527,11 @@ def main() -> int:
     clustered = cluster_phase(rng, dev, imgs)
     log(f"[cluster] {json.dumps(clustered)}")
     log(f"[cluster] {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    decoded_records, decoded = decode_phase(dev)
+    records += decoded_records
+    log(f"[decode] {json.dumps(decoded)}")
+    log(f"[decode] {time.perf_counter() - t0:.3f} s")
 
     records += attention_phases(dev, card)
     records += recurrent_phases(dev, card)

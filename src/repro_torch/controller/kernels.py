@@ -48,6 +48,10 @@ class KernelDef:
     # of a task in one kernel (``core/preemption.make_megakernel``); None =
     # the kernel has none, and megakernel mode refuses it on the card
     mega: Optional[Callable] = None
+    # the library the persistent entry launches, where the chunk body
+    # launches none (the surrogate LM's M2/M3 in ``csrc/seq_lm.cu``); the
+    # "mega" program's generation builds it.  None = ``library``
+    mega_library: Optional[str] = None
 
     def bundle(self, *bufs, **scalars) -> ArgBundle:
         """Build an ArgBundle from declared argument names."""
@@ -67,7 +71,8 @@ def ctrl_kernel(name: str, backend: str = "PYNQ",
                 footprint: int = 1,
                 library: Optional[str] = None,
                 device_result: bool = False,
-                mega: Optional[Callable] = None):
+                mega: Optional[Callable] = None,
+                mega_library: Optional[str] = None):
     def deco(fn):
         kd = KernelDef(name=name, backend=backend, fn=fn,
                        ktile_args=tuple(ktile_args), int_args=tuple(int_args),
@@ -76,7 +81,7 @@ def ctrl_kernel(name: str, backend: str = "PYNQ",
                        footprint=footprint,
                        library=library,
                        device_result=device_result,
-                       mega=mega)
+                       mega=mega, mega_library=mega_library)
         _REGISTRY[name] = kd
         return fn
 

@@ -228,9 +228,10 @@ def make_megakernel(kd, device: Optional[torch.device] = None):
         if kd.mega is None:
             raise NotImplementedError(
                 f"engine='megakernel' on the card runs kernels that have a "
-                f"persistent entry (the blur tasks); {kd.name} has none: "
-                f"persistent serving kernels come with a later slice of the "
-                f"port (ROADMAP §A.3); use 'pipelined' or 'sync'")
+                f"persistent entry (the blur tasks and the surrogate LM's "
+                f"prefill and decode); {kd.name} has none: persistent "
+                f"attention kernels come with a later slice of the port "
+                f"(ROADMAP §A.3); use 'pipelined' or 'sync'")
         entry = kd.mega
 
         def mega(ctx, bufs, ints, floats, budget, flag, after_chunk=None):

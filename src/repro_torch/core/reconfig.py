@@ -340,9 +340,10 @@ class ReconfigEngine:
         # before anything is built
         fn = (make_megakernel(kd, self.device) if program == "mega"
               else make_pipelined_chunk(kd.fn))
-        if kd.library is not None and self.device is not None \
+        library = ((program == "mega" and kd.mega_library) or kd.library)
+        if library is not None and self.device is not None \
                 and self.device.type == "cuda":
-            load_library(kd.library)
+            load_library(library)
         with self._lock:
             self.stats.total_compile_s += time.perf_counter() - t0
         tr = self.tracer

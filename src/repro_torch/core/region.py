@@ -390,7 +390,9 @@ class Region:
         self.executable = fn
         self.stats.reconfigs += 1
         self.stats.reconfig_s += dt
-        if get_kernel(task.kernel).library is not None:
+        kd = get_kernel(task.kernel)
+        if kd.library is not None or (self.program == "mega"
+                                      and kd.mega_library is not None):
             self.stats.kernel_mode = ("cuda" if self.device.type == "cuda"
                                       else "torch")
         task.n_reconfigs += 1
@@ -505,14 +507,16 @@ class Region:
         """Completion tail.  ``device_result`` kernels hand every buffer
         back on the card, marked with the event recorded after the task's
         last launch; the others get their first two buffers as host numpy,
-        copied on this stream (so after every launch of the task)."""
-        task.status = TaskStatus.DONE
+        copied on this stream (so after every launch of the task).  The
+        status turns DONE only once the result is in place: a caller that
+        polls the status finds the result set."""
         task.t_done = time.perf_counter()
         if kd.device_result:
             mark_ready(bufs, self._record())
             task.result = tuple(bufs)
         else:
             task.result = tuple(b.cpu().numpy() for b in bufs[:2])
+        task.status = TaskStatus.DONE
         self.stats.kernels_run += 1
         self.current_task = None
         now = time.perf_counter()

@@ -549,8 +549,10 @@ class ServingEngine:
                         if cfg.decode_regions is not None else None),
         )
         t_round0 = time.perf_counter()
+        probe = self._maybe_probe_preempt(task)
         th = self.backend.submit(task)
-        self._maybe_probe_preempt(task)
+        if probe is not None:
+            probe()
         try:
             bufs = th.result(cfg.round_timeout_s)
         except Exception as exc:  # noqa: BLE001 — the round is the blast
@@ -620,27 +622,30 @@ class ServingEngine:
             self.tracer.emit_span("slot_busy", ("slot", slot), t0, tid=sid)
 
     def _maybe_probe_preempt(self, task: Task):
-        """CI/test hook: checkpoint-preempt the round once, mid-flight.
-        It races the round from a thread (in megakernel mode it arms the
-        round's one-shot flag boundary instead); where a preemption must
-        land for certain, tests place it with the region's ``on_chunk``
-        hook."""
+        """CI/test hook: checkpoint-preempt every Nth round once,
+        mid-flight; called before the round is submitted.  In megakernel
+        mode it arms the round's one-shot flag boundary there, so the
+        launch exits at its first chunk boundary whatever the threads'
+        timing (the reference arms it after the submission, which a quick
+        dispatch can outrun).  Otherwise it returns the probe to start once
+        the round is submitted: a thread that races the round to its
+        region; where a preemption must land for certain, tests place it
+        with the region's ``on_chunk`` hook."""
         every = self.cfg.preempt_probe_every
         if not every:
-            return
+            return None
         self._rounds_since_probe += 1
         if self._rounds_since_probe < every:
-            return
+            return None
         shell = getattr(self.backend, "shell", None)
         if shell is None:
-            return
+            return None
         self._rounds_since_probe = 0
         if getattr(shell, "engine_mode", None) == "megakernel":
             # a megakernel round is one launch with no host chunk boundary
-            # to race: arm the one-shot flag instead, and the launch exits
-            # at its first chunk boundary
+            # to race: arm the one-shot flag instead
             task.preempt_at_boundary = 1
-            return
+            return None
 
         def probe():
             deadline = time.perf_counter() + 5.0
@@ -653,7 +658,7 @@ class ServingEngine:
                         return
                 time.sleep(0.002)
 
-        threading.Thread(target=probe, daemon=True).start()
+        return threading.Thread(target=probe, daemon=True).start
 
     # -- settling --------------------------------------------------------
     def _settle(self, seq: Sequence, status: SequenceStatus,

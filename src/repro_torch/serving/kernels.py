@@ -18,6 +18,11 @@ merges on ``finished`` become plain conditionals, and each step writes its
 slot of the result buffers in place.  Both kernels keep their results on
 the card (``device_result=True``): the engine threads a round's state
 straight into the next round's bundle.
+
+Both register a persistent entry (``mega``): in megakernel mode a task's
+chunk loop is one launch of M2 (``SeqPrefill``) or M3 (``SeqDecode``) on
+the card (``csrc/seq_lm.cu``, ``kernels/seq_lm``), the same control flow
+and the same wrapping arithmetic.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch
 from repro_torch.controller.kernels import ctrl_kernel
 from repro_torch.core.context import ContextRecord
 from repro_torch.core.preemption import for_save
+from repro_torch.kernels.seq_lm.ops import seq_decode_mega, seq_prefill_mega
 
 # LCG-style mixing constants (wrapping int32 throughout).  PHI is the
 # signed-int32 bit pattern of 2654435761 (Knuth's multiplicative hash).
@@ -95,10 +101,23 @@ def oracle_stream(prompt, seed: int, max_new_tokens: int,
 
 # -- region kernels ----------------------------------------------------------
 
+def _prefill_persistent(ctx_words, bufs, ints, floats, budget, flag):
+    """The megakernel engine's entry for ``SeqPrefill``: M2."""
+    return seq_prefill_mega(ctx_words, bufs[0], bufs[1], bufs[2],
+                            int(ints[3]), int(ints[2]), budget, flag)
+
+
+def _decode_persistent(ctx_words, bufs, ints, floats, budget, flag):
+    """The megakernel engine's entry for ``SeqDecode``: M3."""
+    return seq_decode_mega(ctx_words, bufs[0], bufs[1], bufs[2],
+                           int(ints[3]), budget, flag)
+
+
 @ctrl_kernel("SeqPrefill", backend="PYNQ",
              ktile_args=("out", "state", "prompt"),
              int_args=("P", "D", "vocab", "prompt_len"),
-             default_budget=8, device_result=True)
+             default_budget=8, device_result=True,
+             mega=_prefill_persistent, mega_library="seq_lm")
 def seq_prefill(ctx: ContextRecord, bufs, ints, floats):
     """Fold ``prompt[0, :prompt_len]`` into ``state`` (i32[1, D]) one
     position per budget unit; on completion emit the first generated
@@ -121,7 +140,8 @@ def seq_prefill(ctx: ContextRecord, bufs, ints, floats):
 @ctrl_kernel("SeqDecode", backend="PYNQ",
              ktile_args=("out", "state", "slots"),
              int_args=("S", "D", "R", "vocab"),
-             default_budget=4, device_result=True)
+             default_budget=4, device_result=True,
+             mega=_decode_persistent, mega_library="seq_lm")
 def seq_decode(ctx: ContextRecord, bufs, ints, floats):
     """One decode *round*: advance every active slot by one token per
     step, R steps.  bufs: (out i32[S, R], state i32[S, D],

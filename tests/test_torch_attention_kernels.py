@@ -11,6 +11,7 @@ Tolerances are the reference's (``tests/test_attention_kernels.py``):
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # six test workers share the cores: see ROADMAP §C
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

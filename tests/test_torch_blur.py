@@ -9,6 +9,7 @@ hand-written CUDA kernel runs only on the card: its tests are in
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # six test workers share the cores: see ROADMAP §C
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

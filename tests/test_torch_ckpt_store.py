@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # six test workers share the cores: see ROADMAP §C
 
 try:  # property tests degrade to deterministic variants without the dep
     from hypothesis import HealthCheck, given, settings

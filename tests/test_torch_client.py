@@ -9,6 +9,7 @@ import json
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # six test workers share the cores: see ROADMAP §C
 
 import numpy as np  # noqa: E402
 

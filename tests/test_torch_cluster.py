@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # six test workers share the cores: see ROADMAP §C
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -17,6 +17,7 @@ import time
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # six test workers share the cores: see ROADMAP §C
 
 import numpy as np  # noqa: E402
 
@@ -871,3 +872,169 @@ def _to_cpu(tree):
     if isinstance(tree, list):
         return [_to_cpu(v) for v in tree]
     return tree.cpu()
+
+
+# -- M2/M3, the persistent surrogate-LM kernels -------------------------------
+
+def _seq_inputs(kernel, dev, d_model, vocab, seed=0, prompt_len=7,
+                slots=4, steps=5):
+    """One task's buffers on the card for ``kernel`` (two equal sets: the
+    kernel's and the plain version's) and its scalars: a padded prompt for
+    ``SeqPrefill``; for ``SeqDecode`` slot rows of every kind (live, fewer
+    tokens than the round, inactive, none)."""
+    from repro_torch.serving.kernels import init_state
+
+    rng = np.random.default_rng(seed)
+    if kernel == "SeqPrefill":
+        P = -(-prompt_len // 16) * 16
+        prompt = np.zeros((1, P), np.int32)
+        prompt[0, :prompt_len] = rng.integers(0, vocab, prompt_len)
+        bufs = (np.zeros((1, 8), np.int32), init_state(seed, d_model)[None],
+                prompt)
+        scalars = dict(P=P, D=d_model, vocab=vocab, prompt_len=prompt_len)
+    else:
+        state = rng.integers(-2**31, 2**31, (slots, d_model),
+                             dtype=np.int64).astype(np.int32)
+        tbl = np.zeros((slots, 8), np.int32)
+        tbl[:, 0] = rng.integers(0, 2, slots)
+        tbl[:, 0][:2] = 1
+        tbl[:, 1] = rng.integers(0, steps + 1, slots)
+        tbl[:, 1][0] = steps
+        tbl[:, 2] = rng.integers(0, vocab, slots)
+        bufs = (np.full((slots, steps), -1, np.int32), state, tbl)
+        scalars = dict(S=slots, D=d_model, R=steps, vocab=vocab)
+    mine = tuple(torch.tensor(b, device=dev) for b in bufs)
+    return mine, tuple(b.clone() for b in mine), scalars
+
+
+def _seq_step(kernel, mine, plain, scalars, ctx, budget, flag, boundary):
+    """One launch of M2/M3 and of its plain version (the host loop over
+    the task body, on the card) from ``ctx`` with the flag at
+    ``boundary``: equal context words, chunk counts, progress and
+    buffers, bitwise.  Returns the context after it."""
+    from repro_torch.kernels.seq_lm import kernel as QK
+
+    kd = get_kernel(kernel)
+    flag.write(boundary)
+    launches = QK.MEGA_LAUNCHES[kernel]
+    if kernel == "SeqPrefill":
+        launch = QK.seq_prefill_mega(ctx.to_words(), *mine,
+                                     scalars["prompt_len"], scalars["vocab"],
+                                     budget, flag)
+    else:
+        launch = QK.seq_decode_mega(ctx.to_words(), *mine, scalars["vocab"],
+                                    budget, flag)
+    words, n = launch.result()
+    assert QK.MEGA_LAUNCHES[kernel] == launches + 1
+    assert flag.progress() == n
+    _, ints, floats = kd.bundle(*mine, **scalars).padded()
+    want, _, want_n = make_megakernel(kd)(ctx, plain, ints, floats, budget,
+                                          flag).result()
+    torch.cuda.synchronize()
+    assert n == want_n
+    np.testing.assert_array_equal(words, want.to_words())
+    for a, b in zip(mine, plain):
+        assert torch.equal(a, b)
+    flag.clear()
+    return want
+
+
+@pytest.mark.parametrize("kernel", ["SeqPrefill", "SeqDecode"])
+@pytest.mark.parametrize("budget", [1, 2, 4])
+@pytest.mark.parametrize("d_model,vocab,size", [(16, 101, 3),
+                                                (384, 51865, 32),
+                                                (100, 51865, 130)])
+def test_cuda_seq_mega_matches_plain_version(cuda_device, kernel, budget,
+                                             d_model, vocab, size):
+    """M2/M3 against their plain versions on the card: a whole task in one
+    launch, then the flag at every boundary of a fresh task and its
+    resume.  ``size`` is the prompt length (M2) or the slot rows (M3;
+    130 is cut to 128, the most one launch takes: 32 warps of 4 rows)."""
+    from repro_torch.kernels.seq_lm import kernel as QK
+
+    if kernel == "SeqDecode":
+        size = min(size, QK.MAX_SLOTS)
+        kw = dict(slots=size, steps=6)
+        steps = 6
+    else:
+        kw = dict(prompt_len=size)
+        steps = size
+    flag = PreemptFlag(cuda_device)
+    mine, plain, scalars = _seq_inputs(kernel, cuda_device, d_model, vocab,
+                                       seed=budget, **kw)
+    ctx = _seq_step(kernel, mine, plain, scalars, ContextRecord.fresh(),
+                    budget, flag, 0)
+    assert ctx.done == 1
+    for k in range(1, -(-steps // budget) + 1):
+        mine, plain, scalars = _seq_inputs(kernel, cuda_device, d_model,
+                                           vocab, seed=k, **kw)
+        ctx = ContextRecord.fresh()
+        while not ctx.done:
+            ctx = _seq_step(kernel, mine, plain, scalars, ctx, budget, flag,
+                            k)
+
+
+def test_cuda_seq_mega_wrappers_reject_bad_inputs(cuda_device):
+    from repro_torch.kernels.seq_lm import kernel as QK
+
+    flag = PreemptFlag(cuda_device)
+    words = ContextRecord.fresh().to_words()
+    (out, state, prompt), _, _ = _seq_inputs("SeqPrefill", cuda_device, 16,
+                                             101)
+    with pytest.raises(ValueError, match="prompt_len"):
+        QK.seq_prefill_mega(words, out, state, prompt, 17, 101, 1, flag)
+    with pytest.raises(TypeError):
+        QK.seq_prefill_mega(words, out, state.long(), prompt, 7, 101, 1,
+                            flag)
+    with pytest.raises(ValueError, match="budget"):
+        QK.seq_prefill_mega(words, out, state, prompt, 7, 101, 0, flag)
+    with pytest.raises(ValueError, match="PreemptFlag"):
+        QK.seq_prefill_mega(words, out, state, prompt, 7, 101, 1,
+                            PreemptFlag())
+    (out, state, slots), _, _ = _seq_inputs("SeqDecode", cuda_device, 16,
+                                            101)
+    with pytest.raises(ValueError, match="context words"):
+        QK.seq_decode_mega(words[:35], out, state, slots, 101, 1, flag)
+    with pytest.raises(ValueError, match="slots"):
+        QK.seq_decode_mega(words, out, state, slots[:, :3], 101, 1, flag)
+    with pytest.raises(ValueError, match="CUDA"):
+        QK.seq_decode_mega(words, out.cpu(), state, slots, 101, 1, flag)
+
+
+@pytest.mark.parametrize("engine", ["pipelined", "megakernel"])
+def test_cuda_serve_decode_streams_equal_oracle(cuda_device, engine):
+    """``serve decode`` on cuda:0 (the default), a probe every 2nd round:
+    every stream verifies against the oracle.  In megakernel mode every
+    prefill and round is one launch of M2/M3 (counted), rounds exit on
+    the flag, and nothing runs the host loop."""
+    from repro_torch.kernels.seq_lm import kernel as QK
+
+    QK.MEGA_LAUNCHES.reset()
+    rep = S.serve_decode(n_sequences=8, prompt_len=12, max_new=12, slots=4,
+                         round_tokens=4, preempt_every=2, engine=engine,
+                         quiet=True)
+    assert rep["n_finished"] == 8
+    launches = (QK.MEGA_LAUNCHES["SeqPrefill"], QK.MEGA_LAUNCHES["SeqDecode"])
+    if engine == "megakernel":
+        assert rep["decode_preemptions"] >= 1
+        assert launches[0] == rep["prefill_tasks"]
+        assert launches[1] == rep["decode_rounds"] + rep["decode_preemptions"]
+    else:
+        assert launches == (0, 0)
+
+
+def test_cuda_serve_decode_attention_megakernel_raises(cuda_device):
+    with pytest.raises(NotImplementedError, match="§A.3"):
+        S.serve_decode(lm="attention", engine="megakernel", quiet=True)
+
+
+@pytest.mark.parametrize("cmd", ["scheduler", "cluster"])
+def test_cuda_serve_blur_subcommands_megakernel(cuda_device, cmd):
+    """``serve scheduler`` / ``serve cluster`` on cuda:0 in megakernel mode:
+    every task done through M1, B1 never launched."""
+    K.LAUNCHES.reset()
+    K.MEGA_LAUNCHES.reset()
+    argv = [cmd, "--n-tasks", "4", "--engine", "megakernel", "--quiet"]
+    rep = S.main(argv)
+    assert rep["n_done"] == 4
+    assert K.MEGA_LAUNCHES.total() >= 4 and K.LAUNCHES.total() == 0

@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module (among
 them ``core.pool``, ``controller.controller``, ``obs`` with its six
-modules, the megakernel engine's, the cluster fabric and the checkpoint
-store) and ``chip_smoke.py``
+modules, the megakernel engine's, the cluster fabric, the checkpoint
+store, the surrogate LM's persistent kernels and the serve CLI) and
+``chip_smoke.py``
 brings in neither ``jax`` nor any ``repro.`` module."""
 import os
 import subprocess
@@ -33,7 +34,10 @@ for name in ("repro_torch.core.pool", "repro_torch.controller.controller",
              # the cluster fabric and the checkpoint store
              "repro_torch.cluster", "repro_torch.cluster.frontend",
              "repro_torch.cluster.node", "repro_torch.cluster.router",
-             "repro_torch.ckpt", "repro_torch.ckpt.store"):
+             "repro_torch.ckpt", "repro_torch.ckpt.store",
+             # the surrogate LM's persistent kernels and the serve CLI
+             "repro_torch.kernels.seq_lm", "repro_torch.kernels.seq_lm.kernel",
+             "repro_torch.kernels.seq_lm.ops", "repro_torch.launch.serve"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)

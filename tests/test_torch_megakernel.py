@@ -33,6 +33,7 @@ from types import SimpleNamespace
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # six test workers share the cores: see ROADMAP §C
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -598,10 +599,9 @@ def test_cuda_region_binds_only_the_persistent_entry():
     assert type(budget) is int
 
 
-@pytest.mark.parametrize("kernel", ["SeqPrefill", "SeqDecode", "AttnPrefill",
-                                    "AttnDecode"])
+@pytest.mark.parametrize("kernel", ["AttnPrefill", "AttnDecode"])
 def test_kernels_without_a_persistent_entry_raise_on_the_card(kernel):
-    """The serving kernels have no persistent entry yet: on a CUDA engine
+    """The attention kernels have no persistent entry yet: on a CUDA engine
     the ``"mega"`` program raises at reconfig (before any build) naming
     the later slice, and nothing falls back to the host loop.  On the CPU
     the plain version binds them, as the reference's CPU backend does."""
@@ -611,6 +611,122 @@ def test_kernels_without_a_persistent_entry_raise_on_the_card(kernel):
     with pytest.raises(NotImplementedError, match="later slice"):
         engine._compile(kd, None, None, program="mega")
     assert callable(P_pre.make_megakernel(kd, torch.device("cpu")))
+
+
+# ------------------------------------- M2/M3, the surrogate LM's entries
+def _seq_inputs(kernel, d_model, vocab, seed=0):
+    """One task's bundle (numpy) for ``kernel``: a 7-token prompt padded to
+    16 for ``SeqPrefill``; for ``SeqDecode`` 4 slot rows of 5 steps: a
+    live row, one of 3 tokens, an inactive one and one of 0 tokens."""
+    from repro_torch.serving.kernels import init_state
+
+    rng = np.random.default_rng(seed)
+    if kernel == "SeqPrefill":
+        prompt = np.zeros((1, 16), np.int32)
+        prompt[0, :7] = rng.integers(0, vocab, 7)
+        state = init_state(seed, d_model)[None, :]
+        return ((np.zeros((1, 8), np.int32), state, prompt),
+                dict(P=16, D=d_model, vocab=vocab, prompt_len=7))
+    S, R = 4, 5
+    state = rng.integers(-2**31, 2**31, (S, d_model),
+                         dtype=np.int64).astype(np.int32)
+    slots = np.zeros((S, 8), np.int32)
+    slots[:, 0] = (1, 1, 0, 1)                      # active
+    slots[:, 1] = (R, 3, R, 0)                      # n_emit
+    slots[:, 2] = rng.integers(0, vocab, S)         # last token
+    out = np.full((S, R), -1, np.int32)
+    return ((out, state, slots), dict(S=S, D=d_model, R=R, vocab=vocab))
+
+
+def _seq_mega_port(kernel, words, bufs, scalars, budget, flag):
+    from repro_torch.kernels.seq_lm import ops as SQ
+
+    if kernel == "SeqPrefill":
+        return SQ.seq_prefill_mega(words, *bufs, scalars["prompt_len"],
+                                   scalars["vocab"], budget, flag).result()
+    return SQ.seq_decode_mega(words, *bufs, scalars["vocab"], budget,
+                              flag).result()
+
+
+@pytest.mark.parametrize("kernel", ["SeqPrefill", "SeqDecode"])
+@pytest.mark.parametrize("budget", [1, 2, 4])
+@pytest.mark.parametrize("d_model,vocab", [(16, 101), (64, 51865)])
+def test_seq_mega_plain_version_equals_reference_megakernel(kernel, budget,
+                                                            d_model, vocab):
+    """``kernels.seq_lm.ops`` on CPU tensors (M2/M3's plain version)
+    against the reference's ``make_megakernel`` over ``seq_prefill`` /
+    ``seq_decode``, called directly, launch after launch to completion,
+    with the flag at every boundary (0: one launch runs the task): every
+    context field, the chunk count and every buffer bitwise after each
+    launch."""
+    import jax
+
+    bufs, scalars = _seq_inputs(kernel, d_model, vocab)
+    r_kd = R_kernels.get_kernel(kernel)
+    r_mega = jax.jit(R_pre.make_megakernel(r_kd.fn))
+    r_flag = R_pre.PreemptFlag()
+    p_flag = P_pre.PreemptFlag()
+    steps = 7 if kernel == "SeqPrefill" else 5
+    for flag in range(0, -(-steps // budget) + 2):
+        r_bufs, r_ints, r_floats = r_kd.bundle(
+            *(b.copy() for b in bufs), **scalars).padded()
+        r_state = tuple(jnp.asarray(b) for b in r_bufs)
+        r_ctx = R_Ctx.fresh()
+        mine = tuple(torch.tensor(b) for b in bufs)
+        words = P_Ctx.fresh().to_words()
+        for launch in range(100):
+            r_flag.write(flag)
+            p_flag.write(flag)
+            r_ctx, r_state, r_done, r_n = r_mega(
+                r_ctx, r_state, r_ints, r_floats, jnp.int32(budget),
+                r_flag.device)
+            words, n = _seq_mega_port(kernel, words, mine, scalars, budget,
+                                      p_flag)
+            where = f"flag {flag}, launch {launch}"
+            assert n == int(r_n), where
+            assert p_flag.progress() == n, where
+            got = P_Ctx.from_words(words)
+            for f in FIELDS:
+                np.testing.assert_array_equal(
+                    getattr(got, f), np.asarray(getattr(r_ctx, f)),
+                    err_msg=f"{f}, {where}")
+            for a, b in zip(mine, r_state[:3]):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                              err_msg=where)
+            if int(r_done):
+                break
+        assert got.done == 1
+        if flag == 0 or flag > -(-steps // budget):
+            assert launch == 0  # one launch runs the whole task
+
+
+@pytest.mark.parametrize("kernel", ["SeqPrefill", "SeqDecode"])
+def test_seq_kernels_bind_their_persistent_entry(kernel):
+    """``SeqPrefill``/``SeqDecode`` carry their persistent entries (M2/M3,
+    built from ``csrc/seq_lm.cu`` with the ``"mega"`` program): on a CUDA
+    device ``make_megakernel`` binds them without raising, and the bound
+    launch hands the context words, buffers, ``prompt_len``/``vocab`` and
+    the budget to ``kernels.seq_lm.ops``, which (given CPU tensors here)
+    runs the plain version: its context, chunks and buffers equal the host
+    loop's."""
+    kd = P_kernels.get_kernel(kernel)
+    assert kd.mega is not None and kd.mega_library == "seq_lm"
+    assert kd.library is None  # the chunk body launches no CUDA kernel
+    bufs, scalars = _seq_inputs(kernel, 32, 51865, seed=5)
+    _, ints, floats = kd.bundle(*bufs, **scalars).padded()
+    flag = P_pre.PreemptFlag()
+    flag.write(2)
+    mine = tuple(torch.tensor(b) for b in bufs)
+    ctx, got, n = P_pre.make_megakernel(kd, torch.device("cuda", 0))(
+        P_Ctx.fresh(), mine, ints, floats, 1, flag).result()
+    plain = tuple(torch.tensor(b) for b in bufs)
+    want_ctx, _, want_n = P_pre.make_megakernel(kd)(
+        P_Ctx.fresh(), plain, ints, floats, 1, flag).result()
+    assert got is mine and n == want_n == 2 and ctx.done == 0
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(ctx, f), getattr(want_ctx, f))
+    for a, b in zip(mine, plain):
+        assert torch.equal(a, b)
 
 
 def test_serving_probe_arms_the_flag_in_megakernel_mode():

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # six test workers share the cores: see ROADMAP §C
 
 from repro import obs as R_obs  # noqa: E402
 from repro.controller import kernels as R_kernels  # noqa: E402

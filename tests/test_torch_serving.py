@@ -26,6 +26,7 @@ import os
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # six test workers share the cores: see ROADMAP §C
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

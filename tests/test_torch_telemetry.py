@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # six test workers share the cores: see ROADMAP §C
 
 from repro import obs as R_obs  # noqa: E402
 from repro_torch import obs as P_obs  # noqa: E402
