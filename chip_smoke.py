@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. card: name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` builds every ``src/repro_torch/csrc/*.cu`` (blur with
    the persistent M1, the preempt flag, flash attention, decode attention,
-   RG-LRU scan, RWKV-6, the surrogate LM's persistent M2/M3) for
+   RG-LRU scan, RWKV-6, the surrogate LM's persistent M2/M3, the attention
+   LM's persistent M4/M5) for
    ``sm_90a``, one process per source, all at
    once, and prints each kernel's register and spill lines;
 3. kernel vs plain version on the card: median (bitwise) and gaussian
@@ -187,6 +188,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the tokens counter must equal the tokens streamed, the TTFT histogram
    count the sequences, the ``decode_round`` spans the engine's rounds),
    and must stream the same tokens;
+8a. ``[serve, mega]``, between phase 8's first pass and its repeats: the
+   same traffic through ``Client(n_regions=2, serving=SERVING,
+   engine="megakernel")``, every 3rd decode round's first launch armed
+   through ``on_launch`` to exit at its 2nd boundary.  Every stream must
+   equal phase 8's oracle replay, a round must exit on the flag, the
+   counters (zeroed just before the first submit, read after the last
+   result) must read one M4 launch per prefill task and one M5 launch per
+   decode dispatch, together the regions' megakernel launches, and no B2
+   or B3 launch; tokens/s and TTFT beside phase 8's.  Then M4 and M5
+   (``csrc/attn_lm.cu``) against their plain versions on the card (the
+   host loop over the chunk body: cuBLAS f32 products, B2/B3) at phase 8's
+   weights and shapes, the flag at every boundary of one task each at
+   budgets 1, 2 and 4 and at random boundaries of 3 more: tokens, tables
+   and context words bitwise, K/V within 2e-5, with the smallest top-two
+   gap of the plain logits among the emitted tokens; their device time a
+   launch and a chunk at the main path's budget (``torch.profiler``, else
+   queued behind a spin kernel), the plain version's, the bound from the
+   bytes and FLOPs each segment or step needs, the grid; and the host time
+   from a flag write to a running M5 launch's exit;
 9. attention times at those shapes: device time (``torch.profiler``, else
    queued behind a spin kernel) and CUDA-event time per launch for each
    kernel, its plain version and one ``scaled_dot_product_attention`` call
@@ -234,7 +254,9 @@ result.
 ``git archive`` of another commit, e.g. the parent) and in this tree, one
 process each, in the order other, this, this, other, ``AB_RUNS`` runs
 after a warm-up in each: host time per chunk, urgent service and wall
-time, then each tree's median and range.
+time, then each tree's median and range.  ``python3 chip_smoke.py
+--ab-attention OTHER_TREE`` does the same for B2's and B3's device time per
+launch at phase 9's shapes, and logs each tree's register and spill lines.
 """
 from __future__ import annotations
 
@@ -328,7 +350,7 @@ CLUSTER_HOP_AT = 3
 CLUSTER_FAIL_AT = 4
 CLUSTER_MIGRATE_WAIT_S = 5.0
 LIBRARIES = ("blur", "preempt_flag", "flash_attention", "decode_attention",
-             "rglru_scan", "rwkv6", "seq_lm")
+             "rglru_scan", "rwkv6", "seq_lm", "attn_lm")
 # [decode]: the surrogate LM at its published scale, the reference's serve
 # decode defaults (src/repro/launch/serve.py:514-517: whisper-tiny's d_model
 # and vocabulary), and the main path's traffic
@@ -353,6 +375,17 @@ N_SEQS = 16
 SERVE_CHUNK_BUDGET = 2     # 4 chunks per prefill task and per decode round
 PREEMPT_EVERY = 3          # every 3rd decode round, at its 2nd chunk
 F32_TOL, BF16_TOL = 2e-5, 2e-2
+# [serve, mega]: M4/M5 against their plain versions at these budgets, the
+# flag at every boundary of one task each, then random boundaries of
+# ATTN_RANDOM_TASKS tasks at budget 1; the flag-lag launch of M5 runs
+# ATTN_LAG_STEPS steps (never reached) and the host writes the flag once
+# it has published ATTN_LAG_AT chunks
+ATTN_BUDGETS = (1, 2, 4)
+ATTN_RANDOM_TASKS = 3
+ATTN_PROMPT_LENS = (8, 96)
+ATTN_LAG_STEPS = 400
+ATTN_LAG_AT = 10
+ATTN_LAG_TRIALS = 3
 FLASH_OFFSETS = (0, 64, 112)
 # B2's edges beyond the serving shape, (B, H, KV, T, S, hd, q_offset,
 # window): groups 1, 8 and 32 (16 heads a block), hd 16 and 120, a window,
@@ -2088,22 +2121,28 @@ def serving_traffic():
     return seqs
 
 
-def serve_attention(traffic, trace: bool = False, tracer=None, metrics=None):
+def serve_attention(traffic, trace: bool = False, tracer=None, metrics=None,
+                    engine: str = "pipelined"):
     """The main path of token serving: ``Client.stream`` on cuda:0 through
-    both attention kernels, with every 3rd decode round preempted at its
-    2nd chunk.  Launch counters are zeroed just before the sequences are
-    submitted and read just after the last one finished.  Returns a dict:
-    the streams, the serving and scheduler reports, the launches, the LM's
-    weights, the seconds to build the weights on the host and to upload
-    them, the peak device memory in GB, and with ``trace`` the device time
-    by kernel name from ``torch.profiler`` over the serving window.
-    ``tracer`` and ``metrics`` (``repro_torch.obs``) go to the Client."""
+    both attention kernels (pipelined: B2/B3 a chunk; megakernel: one
+    M4/M5 launch a dispatch), with every 3rd decode round preempted at its
+    2nd chunk (pipelined: ``request_preempt`` after its 2nd chunk;
+    megakernel: its first launch armed through ``on_launch`` to exit at
+    its 2nd boundary).  Launch counters are zeroed just before the
+    sequences are submitted and read just after the last one finished.
+    Returns a dict: the streams, the serving and scheduler reports, the
+    launches, the LM's weights, the seconds to build the weights on the
+    host and to upload them, the peak device memory in GB, and with
+    ``trace`` the device time by kernel name from ``torch.profiler`` over
+    the serving window.  ``tracer`` and ``metrics`` (``repro_torch.obs``)
+    go to the Client."""
     import contextlib
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import repro_torch
+    from repro_torch.kernels.attn_lm import kernel as AK
     from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.serving.attention import AttentionParams, build_weights
@@ -2134,21 +2173,36 @@ def serve_attention(traffic, trace: bool = False, tracer=None, metrics=None):
                 fired.add(task.tid)
                 region.request_preempt()
 
+    def on_launch(region, task):
+        if task.phase != "decode":
+            return
+        with lock:
+            if task.tid not in chunks:
+                rounds.append(task.tid)
+                chunks[task.tid] = 0
+            nth = rounds.index(task.tid) + 1
+            if nth % PREEMPT_EVERY == 1 and task.tid not in fired:
+                fired.add(task.tid)
+                region.flag.write(2)
+
     torch.cuda.reset_peak_memory_stats()
     client = repro_torch.Client(n_regions=2, chunk_budget=SERVE_CHUNK_BUDGET,
                                 serving=SERVING, tracer=tracer,
-                                metrics=metrics)
+                                metrics=metrics, engine=engine)
     try:
         for r in client.shell.regions:
             r.on_chunk = on_chunk
+            r.on_launch = on_launch
         t0 = time.perf_counter()
-        engine = client.serving          # uploads the weights once
+        lm = client.serving.lm           # uploads the weights once
         torch.cuda.synchronize()
         upload_s = time.perf_counter() - t0
         prof = (profile(activities=[ProfilerActivity.CUDA]) if trace
                 else contextlib.nullcontext())
         FK.LAUNCHES.reset()
         DK.LAUNCHES.reset()
+        AK.MEGA_LAUNCHES.reset()
+        AK.STEPS.reset()
         with prof:
             handles = [client.stream(prompt, max_new_tokens=new)
                        for prompt, new in traffic]
@@ -2156,8 +2210,14 @@ def serve_attention(traffic, trace: bool = False, tracer=None, metrics=None):
             torch.cuda.synchronize()
         launches = {"flash_attention": FK.LAUNCHES.total(),
                     "decode_attention": DK.LAUNCHES.total()}
+        if engine == "megakernel":
+            launches.update({
+                "attn_prefill_mega": AK.MEGA_LAUNCHES["AttnPrefill"],
+                "attn_decode_mega": AK.MEGA_LAUNCHES["AttnDecode"],
+                "segments": AK.STEPS["AttnPrefill"],
+                "steps": AK.STEPS["AttnDecode"]})
         run = {"streams": streams, "launches": launches,
-               "weights": engine.lm.weights, "build_s": build_s,
+               "weights": lm.weights, "build_s": build_s,
                "upload_s": upload_s, "serving": client.serving_report(),
                "scheduler": client.report(),
                "by_kernel": ({e.key: e.self_device_time_total / 1e3
@@ -2220,8 +2280,420 @@ def check_serving_trace(run: dict, tracer, reg):
             f"{srep['decode_rounds']}, dropped {tracer.dropped}")
 
 
+# -- [serve, mega]: M4/M5, the attention LM's persistent kernels -------------
+
+def _attn_buffers(kind: str, dev, rng, weights, p, steps: int = None):
+    """One attention-LM task's buffers on the card, twice (M4/M5's and the
+    plain version's; the weights shared), and its scalars, at the serving
+    shapes: for ``prefill`` ``prefill_batch`` rows of seeded prompts of
+    ``ATTN_PROMPT_LENS`` tokens; for ``decode`` ``max_slots`` rows of a
+    ``round_tokens``-step round (or ``steps``) over shuffled pages of
+    random pools, row 0 live all round, the others live, dead (inactive)
+    or short (fewer tokens than the round, 0 included) at random."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import attention as A
+
+    if kind == "prefill":
+        PB, P = SERVING["prefill_batch"], p.max_ctx
+        prompt = np.zeros((PB, P), np.int32)
+        meta = np.zeros((PB, A.META_W), np.int32)
+        for r in range(PB):
+            n = int(rng.integers(ATTN_PROMPT_LENS[0], ATTN_PROMPT_LENS[1] + 1))
+            prompt[r, :n] = rng.integers(0, p.vocab, n)
+            meta[r, 0] = n
+        kv = np.zeros((PB, P, p.kv_heads, p.head_dim), np.float32)
+        bufs = (np.full((PB, A.PREFILL_OUT_W), -1, np.int32), kv, kv.copy(),
+                prompt, meta)
+        scalars = dict(PB=PB, P=P, vocab=p.vocab)
+    else:
+        S, R = SERVING["max_slots"], steps or SERVING["round_tokens"]
+        T_blk = p.blocks_per_seq
+        NB = S * T_blk + 1
+        shape = (NB, p.block_size, p.kv_heads, p.head_dim)
+        k_pool = rng.standard_normal(shape, dtype=np.float32)
+        v_pool = rng.standard_normal(shape, dtype=np.float32)
+        k_pool[0] = v_pool[0] = 0.0
+        table = np.zeros((S, p.table_width), np.int32)
+        pages = rng.permutation(np.arange(1, NB))
+        for s in range(S):
+            pos = int(rng.integers(1, max(2, p.max_ctx - R)))
+            table[s, 0] = 1 if s == 0 else int(rng.integers(0, 2))
+            table[s, 1] = R if s == 0 else int(rng.integers(0, R + 1))
+            table[s, 2] = int(rng.integers(0, p.vocab))
+            table[s, A.COL_SEQ_LEN] = pos
+            n_blk = min(T_blk, -(-(pos + R) // p.block_size))
+            table[s, A.TABLE_META:A.TABLE_META + n_blk] = pages[
+                s * T_blk:s * T_blk + n_blk]
+        bufs = (np.full((S, R), -1, np.int32), k_pool, v_pool, table)
+        scalars = dict(S=S, R=R, vocab=p.vocab)
+    mine = tuple(torch.tensor(b, device=dev) for b in bufs) + (weights,)
+    plain = tuple(b.clone() for b in mine[:-1]) + (weights,)
+    return mine, plain, scalars
+
+
+def _attn_launch(kind: str, words, bufs, p, budget: int, flag):
+    from repro_torch.kernels.attn_lm import kernel as AK
+
+    if kind == "prefill":
+        return AK.attn_prefill_mega(words, *bufs[:6], p.geometry(),
+                                    budget, flag)
+    return AK.attn_decode_mega(words, *bufs[:5], p.geometry(), budget,
+                               flag)
+
+
+def _attn_step(kind: str, mine, plain, scalars, p, ctx, budget: int, flag,
+               boundary: int):
+    """One launch of M4/M5 and of its plain version (the host loop over the
+    task's chunk body, on the card: cuBLAS products, B2/B3) from ``ctx``
+    with the flag at ``boundary``: equal context words, chunk counts and
+    progress, tokens and tables bitwise, K/V within 2e-5.  Returns (the
+    context after it, the K/V's max abs difference)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.controller.kernels import get_kernel
+    from repro_torch.core.preemption import make_megakernel
+    from repro_torch.serving import attention as A
+
+    names = A.register_attention_kernels(p)
+    kd = get_kernel(names[0] if kind == "prefill" else names[1])
+    flag.write(boundary)
+    words, n = _attn_launch(kind, ctx.to_words(), mine, p, budget,
+                            flag).result()
+    progress = flag.progress()
+    _, ints, floats = kd.bundle(*plain, **scalars).padded()
+    want, _, want_n = make_megakernel(kd)(ctx, plain, ints, floats, budget,
+                                          flag).result()
+    torch.cuda.synchronize()
+    err, same = 0.0, True
+    for a, b in zip(mine[:-1], plain[:-1]):
+        if a.dtype == torch.int32:
+            same = same and torch.equal(a, b)
+        else:
+            err = max(err, float((a - b).abs().max()))
+    if (n != want_n or progress != n or not same or not err <= F32_TOL
+            or not np.array_equal(words, want.to_words())):
+        raise AssertionError(
+            f"[serve, mega] {kind} at boundary {boundary}, budget {budget}: "
+            f"chunks {n} / {want_n}, progress {progress}, tokens and tables "
+            f"equal {same}, K/V differ by {err}, context words equal "
+            f"{np.array_equal(words, want.to_words())}")
+    flag.clear()
+    return want, err
+
+
+def _emitted_gap(kind: str, plain, table0, p) -> float:
+    """The smallest gap between the top two logits of a token the task
+    emitted, recomputed in plain torch from the plain version's finished
+    buffers (``table0``: the decode table before the round): a query row
+    a prefill row's last prompt position or a live decode step, attending
+    its own keys."""
+    import torch
+
+    from repro_torch.serving import attention as A
+
+    E, pe, wq, _, _, wo = A._split(plain[-1], p)
+    H, KV, hd = p.n_heads, p.kv_heads, p.head_dim
+    if kind == "prefill":
+        _, k_new, v_new, prompt, meta = plain[:5]
+        rows = (meta[:, 0] > 0).nonzero()[:, 0]
+        n = meta[rows, 0].long()
+        x = E[prompt[rows, n - 1]] + pe[n - 1]
+        keys, vals = k_new[rows], v_new[rows]
+    else:
+        out, k_pool, v_pool = plain[:3]
+        xs, ks, vs, ns = [], [], [], []
+        for s_ in range(table0.shape[0]):
+            if table0[s_, 0] != 1:
+                continue
+            pages = table0[s_, A.TABLE_META:].long()
+            for t in range(int(table0[s_, 1])):
+                tok = table0[s_, 2] if t == 0 else out[s_, t - 1]
+                pos = min(int(table0[s_, A.COL_SEQ_LEN]) + t, p.max_ctx - 1)
+                xs.append(E[tok] + pe[pos])
+                ks.append(k_pool[pages].reshape(-1, KV, hd))
+                vs.append(v_pool[pages].reshape(-1, KV, hd))
+                ns.append(pos + 1)
+        if not xs:
+            return math.inf
+        x, keys, vals = torch.stack(xs), torch.stack(ks), torch.stack(vs)
+        n = torch.tensor(ns, device=x.device)
+    if not len(n):
+        return math.inf
+    q = (x @ wq.T).view(-1, H, hd)
+    k, v = (t.repeat_interleave(H // KV, dim=2) for t in (keys, vals))
+    s_ = torch.einsum("nhd,nlhd->nhl", q, k) / hd ** 0.5
+    past = (torch.arange(k.shape[1], device=x.device)[None, None, :]
+            >= n[:, None, None])
+    a = s_.masked_fill(past, -math.inf).softmax(-1)
+    o = torch.einsum("nhl,nlhd->nhd", a, v).reshape(-1, H * hd)
+    top = ((o @ wo) @ E.T).topk(2).values
+    return float((top[:, 0] - top[:, 1]).min())
+
+
+def _attn_checks(dev, rng, weights, p) -> dict:
+    """M4/M5 against their plain versions at the serving widths and shapes:
+    the flag at every boundary of one task each (the flag at boundary k of
+    a fresh task, then at k for every resume) at budgets 1, 2 and 4, then
+    random boundaries of ``ATTN_RANDOM_TASKS`` tasks at budget 1.  Returns
+    the launches compared, the largest K/V difference and the smallest
+    top-two gap of the plain logits among the emitted tokens, per kernel."""
+    from repro_torch.core.context import ContextRecord
+    from repro_torch.core.preemption import PreemptFlag
+
+    flag = PreemptFlag(dev)
+    out = {}
+    for kind in ("prefill", "decode"):
+        steps = (p.max_ctx // p.block_size if kind == "prefill"
+                 else SERVING["round_tokens"])
+        n_launch, err, gap = 0, 0.0, math.inf
+        for budget in ATTN_BUDGETS:
+            for k in range(0, -(-steps // budget) + 1):
+                mine, plain, sc = _attn_buffers(kind, dev, rng, weights, p)
+                ctx, table0 = ContextRecord.fresh(), plain[3].clone()
+                while not ctx.done:
+                    ctx, e = _attn_step(kind, mine, plain, sc, p, ctx,
+                                        budget, flag, k)
+                    n_launch, err = n_launch + 1, max(err, e)
+                gap = min(gap, _emitted_gap(kind, plain, table0, p))
+        small = n_launch
+        for _ in range(ATTN_RANDOM_TASKS):
+            mine, plain, sc = _attn_buffers(kind, dev, rng, weights, p)
+            ctx, table0 = ContextRecord.fresh(), plain[3].clone()
+            while not ctx.done:
+                ctx, e = _attn_step(kind, mine, plain, sc, p, ctx, 1, flag,
+                                    int(rng.integers(1, steps + 1)))
+                n_launch, err = n_launch + 1, max(err, e)
+            gap = min(gap, _emitted_gap(kind, plain, table0, p))
+        m = "M4" if kind == "prefill" else "M5"
+        log(f"[serve, mega] {m} ({kind}) equals its plain version at "
+            f"d_model {p.d_model}, vocab {p.vocab}, {p.n_heads} heads, "
+            f"{p.kv_heads} KV heads, hd {p.head_dim}: {small} launches at "
+            f"every boundary of a {steps}-step task (budgets {ATTN_BUDGETS}), "
+            f"{n_launch - small} at random boundaries of {ATTN_RANDOM_TASKS} "
+            f"tasks; tokens, tables and context words bitwise, K/V max abs "
+            f"difference {err:.3e} (tolerance {F32_TOL:g}); smallest top-two "
+            f"gap of the plain logits among the emitted tokens (recomputed in "
+            f"plain torch) {gap:.6g}")
+        out[kind] = {"launches": n_launch, "err": err, "gap": gap}
+    return out
+
+
+def _attn_bounds(kind: str, mine, p, budget: int) -> tuple:
+    """(bytes ms, operations ms) of one whole task at its inputs, run in
+    chunks of ``budget``.  M4: a chunk's outputs must be whole when the
+    flag is read at its end, and no work past that boundary may be asked
+    for, so no pass over a weight serves two chunks; within a chunk the
+    segments' x come from the prompt alone and their readouts can wait to
+    the chunk's end, so a chunk reads Wq/Wk/Wv once and, when a row emits
+    in it, Wo and E once.  M5: a step's x is the token the step before
+    emitted, so every step reads Wq/Wk/Wv and, when a row is live, Wo and
+    E, and its live rows' K/V (E alone is 50 times the L2).  Every segment
+    or step does its products and its attention."""
+    f32 = 4
+    D, HQ, KVD = p.d_model, p.n_heads * p.head_dim, p.kv_heads * p.head_dim
+    qkv_b, emit_b = (HQ + 2 * KVD) * D * f32, (HQ + p.vocab) * D * f32
+    bytes_, ops = 0.0, 0.0
+    if kind == "prefill":
+        C = p.block_size
+        plen = mine[4][:, 0].tolist()
+        PB, n_seg = len(plen), p.max_ctx // C
+        for c0 in range(0, n_seg, budget):
+            seg = range(c0 * C, min(n_seg, c0 + budget) * C)
+            n_emit = sum(n - 1 in seg for n in plen)
+            bytes_ += qkv_b + (emit_b if n_emit else 0)
+            bytes_ += 2 * PB * len(seg) * KVD * f32   # k_new, v_new written
+            pairs = sum(i + 1 for i in seg)
+            ops += (2 * PB * len(seg) * D * (HQ + 2 * KVD)
+                    + 4 * PB * p.n_heads * pairs * p.head_dim
+                    + 2 * n_emit * (HQ * D + D * p.vocab))
+    else:
+        table = mine[3].cpu()
+        S, R = mine[0].shape
+        for t in range(R):
+            live = [s for s in range(S)
+                    if table[s, 0] == 1 and t < table[s, 1]]
+            keys = sum(min(int(table[s, 3]) + t, p.max_ctx - 1) + 1
+                       for s in live)
+            bytes_ += qkv_b + (emit_b if live else 0)
+            bytes_ += 2 * keys * KVD * f32
+            ops += (2 * S * D * (HQ + 2 * KVD) + 4 * p.n_heads * keys
+                    * p.head_dim + 2 * len(live) * (HQ * D + D * p.vocab))
+    return bytes_ / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+
+
+def _attn_times(dev, rng, weights, p, launches: dict, checked: dict) -> list:
+    """M4/M5's device time a launch and a chunk at the main path's shapes
+    and budget (a prefill of ``prefill_batch`` rows, 8 segments; a round of
+    ``max_slots`` slots x ``round_tokens`` steps), the plain version's (the
+    host loop's cuBLAS products and B2/B3), the bound, the grid; then the
+    host time from a flag write to a running M5 launch's exit."""
+    import torch
+
+    from repro_torch.controller.kernels import get_kernel
+    from repro_torch.core.context import ContextRecord
+    from repro_torch.core.preemption import PreemptFlag, make_megakernel
+    from repro_torch.kernels.attn_lm import kernel as AK
+    from repro_torch.serving import attention as A
+
+    flag = PreemptFlag(dev)
+    fresh = ContextRecord.fresh()
+    budget = SERVE_CHUNK_BUDGET
+    names = A.register_attention_kernels(p)
+    records = []
+    for kind, name, kname in (("prefill", "attn_prefill_mega", names[0]),
+                              ("decode", "attn_decode_mega", names[1])):
+        mine, plain, sc = _attn_buffers(kind, dev, rng, weights, p)
+        saved = [b.clone() for b in mine[:-1]]
+        kd = get_kernel(kname)
+        _, ints, floats = kd.bundle(*plain, **sc).padded()
+        entry = make_megakernel(kd)
+        steps = (p.max_ctx // p.block_size if kind == "prefill"
+                 else SERVING["round_tokens"])
+        chunks = -(-steps // budget)
+
+        def mega(kind=kind, mine=mine):
+            _attn_launch(kind, fresh.to_words(), mine, p, budget, flag)
+
+        def host_loop(entry=entry, plain=plain, ints=ints, floats=floats):
+            entry(fresh, plain, ints, floats, budget, flag)
+
+        dev_ms, hows = {}, {}
+        for arm, fn, key in (("kernel", mega, "attn_mega_kernel"),
+                             ("plain", host_loop, None)):
+            dev_ms[arm] = _named_ms(fn, key, 1) if key else device_ms(fn)
+            hows[arm] = "torch.profiler"
+            if dev_ms[arm] <= 0.0:
+                dev_ms[arm] = queued_ms(fn, reps=5)
+                hows[arm] = "queued behind a spin kernel"
+        for a, b in zip(mine[:-1], saved):  # the bound counts the inputs
+            a.copy_(b)
+        bytes_ms, ops_ms = _attn_bounds(kind, mine, p, budget)
+        grid = AK.grid(kind == "decode", p.geometry(),
+                       SERVING["max_slots"], dev)
+        m = "M4" if kind == "prefill" else "M5"
+        log(f"[serve, mega] {name} ({m}), budget {budget} ({chunks} chunks "
+            f"of {budget} {'segments' if kind == 'prefill' else 'steps'}): "
+            f"{dev_ms['kernel']:.6f} ms device a launch ({hows['kernel']}), "
+            f"{dev_ms['kernel'] / chunks:.6f} ms a chunk, "
+            f"{dev_ms['kernel'] / steps:.6f} ms a "
+            f"{'segment' if kind == 'prefill' else 'step'}; the plain "
+            f"version (host loop: cuBLAS f32 products, B2/B3) "
+            f"{dev_ms['plain']:.6f} ms device a task ({hows['plain']}); bound "
+            f"{max(bytes_ms, ops_ms):.6f} ms (bytes {bytes_ms:.6f}, "
+            f"operations {ops_ms:.6f}); grid {grid[0]} blocks (cap "
+            f"{grid[1]}, {grid[2]} co-resident)")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/attn_lm.cu",
+            "replaces": REPLACES_MEGA,
+            "counterpart_of": f"make_megakernel (a lax.while_loop over "
+                              f"attn_{kind}, src/repro/serving/attention.py, "
+                              f"not a pallas_call)",
+            "launches": launches[name], "max_abs_err": checked[kind]["err"],
+            "ms": dev_ms["kernel"], "per": f"launch of {chunks} chunks",
+            "ms_per_chunk": dev_ms["kernel"] / chunks,
+            "plain_ms": dev_ms["plain"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "grid": list(grid)})
+
+    # a flag write landing in a running M5 launch: the host spins on the
+    # launch's event, so the time is the card's answer, not a poll sleep
+    mine, _, _ = _attn_buffers("decode", dev, rng, weights, p,
+                               steps=ATTN_LAG_STEPS)
+    mine[3][:, 0] = 1                      # every row live all along
+    mine[3][:, 1] = ATTN_LAG_STEPS
+    lags = []
+    for _ in range(ATTN_LAG_TRIALS):
+        launch = _attn_launch("decode", fresh.to_words(), mine, p, 1, flag)
+        if not _wait(lambda: flag.progress() >= ATTN_LAG_AT, timeout=60):
+            raise AssertionError("[serve, mega] the lag launch never "
+                                 "progressed")
+        flag.write(1)
+        t_w = time.perf_counter()
+        at = flag.progress()
+        while not launch.query():
+            pass
+        t_x = time.perf_counter()
+        _, n = launch.result()
+        flag.clear()
+        lags.append(((t_x - t_w) * 1e6, n - at))
+        if not 0 <= n - at <= 2 or n >= ATTN_LAG_STEPS:
+            raise AssertionError(f"[serve, mega] the flag exit came {n - at} "
+                                 f"chunks after the write ({n} run)")
+    log(f"[serve, mega] a flag write into a running M5 launch "
+        f"({SERVING['max_slots']} slots, budget 1): host write -> the "
+        f"launch's event seen {[round(t, 3) for t, _ in lags]} us, chunks "
+        f"after the device's published progress {[c for _, c in lags]}")
+    records[-1]["flag_to_exit_us"] = [t for t, _ in lags]
+    return records
+
+
+def serve_mega_phase(dev, traffic, piped: dict, wants: list, p) -> list:
+    """[serve, mega]: phase 8's traffic through ``Client(n_regions=2,
+    serving=SERVING, engine="megakernel")`` once, every 3rd decode round
+    armed through ``on_launch`` to exit at its 2nd boundary: every stream
+    equal to ``attention_oracle_stream`` (``wants``, phase 8's replay), a
+    round exited on the flag, one M4 launch a prefill and one M5 launch a
+    decode dispatch, no B2/B3 launch between the first submit and the last
+    result; tokens/s and TTFT beside phase 8's pipelined run (``piped``).
+    Then M4/M5 against their plain versions and their times (phase 8's
+    weights).  Returns the two kernel records."""
+    import numpy as np
+
+    run = serve_attention(traffic, engine="megakernel")
+    srep, rep, launches = run["serving"], run["scheduler"], run["launches"]
+    log_serving("serve, mega", run)
+    dispatches = rep["megakernel_launches"]
+    rounds = srep["decode_rounds"]
+    want_m5 = (rounds, rounds + srep["decode_preemptions"])
+    log(f"[serve, mega] M4 launches {launches['attn_prefill_mega']} (prefill "
+        f"tasks {srep['prefill_tasks']}), M5 launches "
+        f"{launches['attn_decode_mega']} (decode rounds {rounds}, each "
+        f"preempted one launched again: {srep['decode_preemptions']}), "
+        f"region launches {dispatches}, flag_poll_exits "
+        f"{rep['flag_poll_exits']}; segments {launches['segments']}, steps "
+        f"{launches['steps']}; B2 {launches['flash_attention']}, B3 "
+        f"{launches['decode_attention']}")
+    log(f"[serve, mega] megakernel: {srep['tokens_per_s']:.3f} tokens/s, TTFT "
+        f"p50 {srep['ttft_p50_s'] * 1e3:.3f} ms, p99 "
+        f"{srep['ttft_p99_s'] * 1e3:.3f} ms; pipelined (phase 8, first "
+        f"pass): {piped['tokens_per_s']:.3f} tokens/s, TTFT p50 "
+        f"{piped['ttft_p50_s'] * 1e3:.3f} ms, p99 "
+        f"{piped['ttft_p99_s'] * 1e3:.3f} ms")
+    if srep["n_finished"] != N_SEQS or srep["stranded_sequences"]:
+        raise AssertionError(f"[serve, mega] finished {srep['n_finished']} "
+                             f"of {N_SEQS}")
+    if srep["decode_preemptions"] < 1 or rep["flag_poll_exits"] < 1:
+        raise AssertionError("[serve, mega] no round exited on the flag")
+    if (launches["attn_prefill_mega"] != srep["prefill_tasks"]
+            or not want_m5[0] <= launches["attn_decode_mega"] <= want_m5[1]
+            or launches["attn_prefill_mega"] + launches["attn_decode_mega"]
+            != dispatches
+            or launches["flash_attention"] or launches["decode_attention"]):
+        raise AssertionError(f"[serve, mega] launches {launches}, expected "
+                             f"{srep['prefill_tasks']} M4, {want_m5[0]} to "
+                             f"{want_m5[1]} M5, {dispatches} in all (one a "
+                             f"dispatch), no B2/B3")
+    for i, (got, want) in enumerate(zip(run["streams"], wants)):
+        if got != want:
+            raise AssertionError(f"[serve, mega] sequence {i}: {got} != "
+                                 f"oracle {want}")
+    log(f"[serve, mega] all {N_SEQS} streams equal attention_oracle_stream "
+        f"token for token")
+    weights = run["weights"]
+    del run
+    rng = np.random.default_rng(25)
+    checked = _attn_checks(dev, rng, weights, p)
+    return _attn_times(dev, rng, weights, p, launches, checked)
+
+
 def attention_phases(dev, card: str) -> list:
-    """Phases 6-9; returns the two kernel records."""
+    """Phases 6-9, with [serve, mega] after phase 8's first pass; returns
+    the kernel records of B2, B3, M4 and M5."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2388,6 +2860,7 @@ def attention_phases(dev, card: str) -> list:
         kv_heads=KV, head_dim=hd, block_size=BS, max_ctx=S,
         seed=SERVING["weights_seed"])
     t0 = time.perf_counter()
+    wants = []
     for i, ((prompt, new), got) in enumerate(zip(traffic, streams)):
         want = attention_oracle_stream(
             prompt, new, p, max_slots=SERVING["max_slots"],
@@ -2396,9 +2869,14 @@ def attention_phases(dev, card: str) -> list:
         if got != want:
             raise AssertionError(f"sequence {i} (prompt {len(prompt)}, "
                                  f"{new} new): {got} != oracle {want}")
+        wants.append(want)
     log(f"[serve] all {N_SEQS} streams equal attention_oracle_stream "
         f"token for token ({time.perf_counter() - t0:.3f} s to replay)")
     del run
+    # [serve, mega]: the same traffic in megakernel mode through M4/M5
+    t0 = time.perf_counter()
+    mega_records = serve_mega_phase(dev, traffic, srep, wants, p)
+    log(f"[serve, mega] {time.perf_counter() - t0:.3f} s")
     # the same traffic once more, warm (kernels loaded, cuBLAS initialised),
     # and once under torch.profiler: where the device time of serving goes
     warm = serve_attention(traffic)
@@ -2496,7 +2974,7 @@ def attention_phases(dev, card: str) -> list:
     log(f"[time] attention bounds: {HBM_BYTES_PER_S / 1e12:g} TB/s, "
         f"{F32_OPS_PER_S / 1e12:g} TFLOP/s f32 (H100 SXM data sheet); card "
         f"{card}")
-    return records
+    return records + mega_records
 
 
 def time_kernel(name, n_launch, kernel, plain, library, bounds, launches,
@@ -3608,7 +4086,119 @@ def ab_main(other: str) -> int:
     return 0
 
 
+_AB_ATTN_WORKER = r"""
+import json, sys
+tree, n_runs = sys.argv[1], int(sys.argv[2])
+import numpy as np
+import torch
+import chip_smoke as cs                 # this tree's inputs and timers
+sys.path.insert(0, tree + "/src")       # the tree's kernels, ahead of ours
+from repro_torch.kernels import native
+from repro_torch.kernels.decode_attention import kernel as DK
+from repro_torch.kernels.decode_attention import ref as DR
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import ref as FR
+assert FK.__file__.startswith(tree) and DK.__file__.startswith(tree)
+libs = ("flash_attention", "decode_attention")
+native.load_libraries(libs)
+build = {n: [ln.strip() for ln in native.build_info[n]["log"].splitlines()
+             if "registers" in ln or "spill" in ln] for n in libs}
+dev = torch.device("cuda", 0)
+rng = np.random.default_rng(1)
+H, KV, hd, BS = (cs.SERVING[k] for k in ("attn_heads", "attn_kv_heads",
+                                         "attn_head_dim", "kv_block_size"))
+PB, C, S, B = (cs.SERVING[k] for k in ("prefill_batch", "kv_block_size",
+                                       "max_ctx", "max_slots"))
+scale = 1.0 / hd ** 0.5
+randn = lambda *sh: torch.tensor(rng.standard_normal(sh, dtype=np.float32),
+                                 device=dev)
+q = randn(PB, C, H, hd).transpose(1, 2)
+k, v = (randn(PB, S, KV, hd).transpose(1, 2) for _ in range(2))
+T_blk = S // BS
+NB = B * T_blk + 1
+k_pool, v_pool = randn(NB, BS, KV, hd), randn(NB, BS, KV, hd)
+tables = torch.tensor(rng.permutation(np.arange(1, NB)).reshape(
+    B, T_blk).astype(np.int32), device=dev)
+qs = randn(B, H, 1, hd)
+pos = torch.tensor([0, 1, 17, 40, 64, 100, 127, 128], dtype=torch.int32,
+                   device=dev)
+flash = lambda: [FK.launch(q, k, v, causal=True, window=None, q_offset=o,
+                           scale=scale) for o in range(0, S, C)]
+decode = lambda: DK.launch_paged(qs, k_pool, v_pool, tables, pos,
+                                 window=None, scale=scale)
+err = {"flash_attention": max(float((got - FR.flash_attention(
+           q, k, v, causal=True, q_offset=o, scale=scale)).abs().max())
+           for o, got in zip(range(0, S, C), flash())),
+       "decode_attention": float((decode() - DR.paged_decode_attention(
+           qs, k_pool, v_pool, tables, pos, scale=scale)).abs().max())}
+runs = []
+for _ in range(n_runs):
+    runs.append({
+        "flash_attention": {"profiler": cs.device_ms(flash, launches=S // C)
+                            / (S // C),
+                            "queued": cs.queued_ms(flash) / (S // C)},
+        "decode_attention": {"profiler": cs.device_ms(decode, launches=1),
+                             "queued": cs.queued_ms(decode)}})
+print("AB " + json.dumps({"build": build, "err": err, "runs": runs}))
+"""
+
+
+def ab_attention_main(other: str) -> int:
+    """``--ab-attention OTHER_TREE``: B2's and B3's device time per launch
+    at phase 9's shapes (8 prefill segments, q [4, 32, 16, 128]; a paged
+    decode of 8 rows over pools [65, 16, 8, 128]) with another tree's
+    kernels and with this tree's, one process each, other, this, this,
+    other; every process builds its tree's sources, checks the kernels
+    against their plain versions and logs the ptxas register and spill
+    lines.  The inputs and timers are this script's."""
+    import os
+    import statistics
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs on an NVIDIA GPU", file=sys.stderr)
+        return 2
+    trees = {"other": str(Path(other).resolve()), "this": str(ROOT)}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    log(f"[ab-attention] {card_line()}; other = {trees['other']}, this = "
+        f"{trees['this']}; {AB_RUNS} timings a kernel a process")
+    got = {"other": [], "this": []}
+    for arm in ("other", "this", "this", "other"):
+        out = subprocess.run(
+            [sys.executable, "-c", _AB_ATTN_WORKER, trees[arm],
+             str(AB_RUNS)], capture_output=True, text=True, env=env,
+            cwd=str(ROOT), timeout=TIMEOUT_S)
+        if out.returncode != 0:
+            raise AssertionError(f"[ab-attention] {arm}: exit "
+                                 f"{out.returncode}: {out.stderr[-3000:]}")
+        res = json.loads(next(ln for ln in out.stdout.splitlines()
+                              if ln.startswith("AB "))[3:])
+        for name, lines in res["build"].items():
+            for line in lines:
+                log(f"[ab-attention] {arm} {name} build: {line}")
+        log(f"[ab-attention] {arm}: max abs error against the plain "
+            f"versions {res['err']}")
+        if not max(res["err"].values()) <= F32_TOL:
+            raise AssertionError(f"[ab-attention] {arm}: {res['err']}")
+        for r in res["runs"]:
+            log(f"[ab-attention] {arm}: {json.dumps(r)}")
+        got[arm] += res["runs"]
+    for name in ("flash_attention", "decode_attention"):
+        for how in ("profiler", "queued"):
+            for arm, rs in got.items():
+                xs = [r[name][how] * 1e3 for r in rs if r[name][how] > 0]
+                if xs:
+                    log(f"[ab-attention] {name} {how} {arm}: median "
+                        f"{statistics.median(xs):.4f} us a launch, range "
+                        f"{min(xs):.4f}-{max(xs):.4f} over {len(xs)}")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab"]:
         sys.exit(ab_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--ab-attention"]:
+        sys.exit(ab_attention_main(sys.argv[2]))
     sys.exit(main())

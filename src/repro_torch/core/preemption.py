@@ -215,10 +215,12 @@ def make_megakernel(kd, device: Optional[torch.device] = None):
     fired".
 
     On a CUDA ``device`` it binds the kernel's persistent entry
-    (``KernelDef.mega``): one cooperative launch on the current stream that
-    keeps the context on the card; the host record comes back from the
-    words it writes.  A kernel without one raises ``NotImplementedError``:
-    on the card nothing runs the host loop instead.  Elsewhere it returns
+    (``KernelDef.mega``; every built-in task has one: M1 for the blur
+    tasks, M2/M3 for the surrogate LM, M4/M5 for the attention LM): one
+    cooperative launch on the current stream that keeps the context on the
+    card; the host record comes back from the words it writes.  A kernel
+    without one raises ``NotImplementedError``: on the card nothing runs
+    the host loop instead.  Elsewhere it returns
     the plain version, a host loop over ``make_pipelined_chunk(kd.fn)``
     with the reference's stop rule, which calls ``after_chunk()`` after
     each chunk, before the flag is read.  Both publish the chunks done so
@@ -228,10 +230,8 @@ def make_megakernel(kd, device: Optional[torch.device] = None):
         if kd.mega is None:
             raise NotImplementedError(
                 f"engine='megakernel' on the card runs kernels that have a "
-                f"persistent entry (the blur tasks and the surrogate LM's "
-                f"prefill and decode); {kd.name} has none: persistent "
-                f"attention kernels come with a later slice of the port "
-                f"(ROADMAP §A.3); use 'pipelined' or 'sync'")
+                f"persistent entry (KernelDef.mega); {kd.name} has none: use "
+                f"'pipelined' or 'sync'")
         entry = kd.mega
 
         def mega(ctx, bufs, ints, floats, budget, flag, after_chunk=None):

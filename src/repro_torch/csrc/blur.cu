@@ -90,9 +90,15 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "mega.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using mega::Ctx;
+using mega::kCtxWords;
+using mega::load_flag;
 
 constexpr int kThreads = 128;
 
@@ -238,12 +244,10 @@ void launch_rows(const float* src, long long src_stride, float* dst, long long d
 // ---------------------------------------------------------------------------
 // M1: the persistent blur megakernel (one cooperative launch per task).
 
-constexpr int kCtxN = 8;                    // the context record's N (core/context.py)
 constexpr int kSlotK = 0, kSlotRow = 1;     // kernels/blur/tasks.py
 constexpr int kRowBlock = 32;               // the preemption unit: one budget unit
 constexpr int kMegaRows = 8;                // output rows a thread per tile
 // out[]: the context words, then these
-constexpr int kCtxWords = 4 * kCtxN + 4;
 constexpr int kOutChunks = kCtxWords;       // chunks this launch ran
 constexpr int kOutRowBlocks = kCtxWords + 1;  // row blocks its control issued
 constexpr int kOutTiles = kCtxWords + 2;    // tiles the blocks ran (atomic sum)
@@ -253,17 +257,6 @@ constexpr int kOutWords = kCtxWords + 6;
 // a region's launch takes at most 1 / kRegionsSharing of the blocks the
 // card can hold at once, so another region's cooperative launch still fits
 constexpr int kRegionsSharing = 2;
-
-// struct context (Listing 1.3) plus done/budget/intr, in ContextRecord's
-// field order (ContextRecord.to_words)
-struct Ctx {
-  int var[kCtxN];
-  int init_var[kCtxN];
-  int incr_var[kCtxN];
-  int saved[kCtxN];
-  int valid, done, budget, intr;
-};
-static_assert(sizeof(Ctx) == kCtxWords * sizeof(int), "Ctx must be the 36 context words");
 
 struct MegaArgs {
   Ctx ctx;         // the record at launch, by value
@@ -275,13 +268,6 @@ struct MegaArgs {
   int* progress;    // the mapped host word of the chunks completed
   int* out;         // kOutWords device words, zeroed by the caller
 };
-
-// the host's flag word: a system-scope acquire load, never a cached one
-__device__ __forceinline__ int load_flag(const int* p) {
-  int v;
-  asm volatile("ld.acquire.sys.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
 
 // Blur row blocks [first, first + n_blocks) of `src` into `dst` in place,
 // the tiles shared over the grid.  Returns the tiles this block ran.
@@ -389,17 +375,7 @@ __global__ void __launch_bounds__(kThreads) blur_mega_kernel(const MegaArgs a) {
     stop = *reinterpret_cast<volatile int*>(decision);
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
-#pragma unroll
-    for (int i = 0; i < kCtxN; ++i) {  // ContextRecord.to_words order
-      a.out[i] = c.var[i];
-      a.out[kCtxN + i] = c.init_var[i];
-      a.out[2 * kCtxN + i] = c.incr_var[i];
-      a.out[3 * kCtxN + i] = c.saved[i];
-    }
-    a.out[4 * kCtxN] = c.valid;
-    a.out[4 * kCtxN + 1] = c.done;
-    a.out[4 * kCtxN + 2] = c.budget;
-    a.out[4 * kCtxN + 3] = c.intr;
+    mega::write_ctx(a.out, c);
     a.out[kOutChunks] = n_chunks;
     a.out[kOutRowBlocks] = row_blocks;
     a.out[kOutStatus] = status;
@@ -463,9 +439,7 @@ extern "C" int blur_mega(const int* ctx, float* ping, float* pong, long long str
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   MegaArgs a;
-  const int* w = ctx;
-  int* c = reinterpret_cast<int*>(&a.ctx);
-  for (int i = 0; i < kCtxWords; ++i) c[i] = w[i];
+  a.ctx = mega::read_ctx(ctx);
   a.ping = ping;
   a.pong = pong;
   a.stride = stride;

@@ -71,11 +71,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mega.cuh"
+
 namespace {
 
-constexpr int kCtxN = 8;                    // the context record's N (core/context.py)
+using mega::Ctx;
+using mega::kCtxWords;
+using mega::load_flag;
+
 constexpr int kSlotPos = 0;                 // serving/kernels.py SLOT_POS
-constexpr int kCtxWords = 4 * kCtxN + 4;    // ContextRecord.to_words
 constexpr int kOutChunks = kCtxWords;       // chunks this launch ran
 constexpr int kOutSteps = kCtxWords + 1;    // for_save iterations it ran
 constexpr int kOutStatus = kCtxWords + 2;   // 0, or 1: hit max_chunks undone
@@ -87,17 +91,6 @@ constexpr int kMaxRowsPerWarp = 4;          // so at most 128 slot rows
 constexpr uint32_t kMixA = 1103515245u;
 constexpr uint32_t kMixC = 12345u;
 constexpr uint32_t kPhi = 2654435761u;      // PHI = -1640531535 as int32
-
-// struct context (Listing 1.3) plus done/budget/intr, in ContextRecord's
-// field order (ContextRecord.to_words)
-struct Ctx {
-  int var[kCtxN];
-  int init_var[kCtxN];
-  int incr_var[kCtxN];
-  int saved[kCtxN];
-  int valid, done, budget, intr;
-};
-static_assert(sizeof(Ctx) == kCtxWords * sizeof(int), "Ctx must be the 36 context words");
 
 struct SeqArgs {
   Ctx ctx;                   // the record at launch, by value
@@ -111,13 +104,6 @@ struct SeqArgs {
   int* progress;             // the mapped host word of the chunks completed
   int* words;                // kOutWords device words
 };
-
-// the host's flag word: a system-scope acquire load, never a cached one
-__device__ __forceinline__ int load_flag(const int* p) {
-  int v;
-  asm volatile("ld.acquire.sys.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
 
 // One token folded into row `row` (a warp's lanes over d); returns the
 // wrapped row sum of the new state, the same on every lane.
@@ -236,27 +222,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32) seq_mega_kernel(const SeqArgs 
     stop = decision;
   }
   if (threadIdx.x == 0) {
-#pragma unroll
-    for (int k = 0; k < kCtxN; ++k) {  // ContextRecord.to_words order
-      a.words[k] = c.var[k];
-      a.words[kCtxN + k] = c.init_var[k];
-      a.words[2 * kCtxN + k] = c.incr_var[k];
-      a.words[3 * kCtxN + k] = c.saved[k];
-    }
-    a.words[4 * kCtxN] = c.valid;
-    a.words[4 * kCtxN + 1] = c.done;
-    a.words[4 * kCtxN + 2] = c.budget;
-    a.words[4 * kCtxN + 3] = c.intr;
+    mega::write_ctx(a.words, c);
     a.words[kOutChunks] = n_chunks;
     a.words[kOutSteps] = steps;
     a.words[kOutStatus] = status;
   }
-}
-
-int fill_ctx(SeqArgs& a, const int* ctx) {
-  int* c = reinterpret_cast<int*>(&a.ctx);
-  for (int k = 0; k < kCtxWords; ++k) c[k] = ctx[k];
-  return 0;
 }
 
 template <bool kDecode>
@@ -277,7 +247,7 @@ extern "C" int seq_prefill_mega(const int* ctx, int* out, int* state, const int*
   if (d <= 0 || prompt_len < 0 || vocab <= 0 || budget <= 0 || max_chunks <= 0)
     return (int)cudaErrorInvalidValue;
   SeqArgs a = {};
-  fill_ctx(a, ctx);
+  a.ctx = mega::read_ctx(ctx);
   a.out = out;
   a.state = state;
   a.prompt = prompt;
@@ -302,7 +272,7 @@ extern "C" int seq_decode_mega(const int* ctx, int* out, long long out_stride, i
       max_chunks <= 0)
     return (int)cudaErrorInvalidValue;
   SeqArgs a = {};
-  fill_ctx(a, ctx);
+  a.ctx = mega::read_ctx(ctx);
   a.out = out;
   a.out_stride = out_stride;
   a.state = state;

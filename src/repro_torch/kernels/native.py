@@ -7,8 +7,8 @@ runs at first use, once per process, under its own lock (region workers
 and the bitstream prefetcher may race to it), into ``build/repro_torch/``
 at the repository root.  Each library has its own lock, so
 ``load_libraries`` runs one ``nvcc`` per source, all at once.  The library
-file carries a hash of its source, so an edited source is rebuilt and a
-stale library is never loaded.
+file carries a hash of its source and of the headers it includes, so an
+edited source is rebuilt and a stale library is never loaded.
 
 Nothing here runs at import: importing this module needs no CUDA toolkit.
 
@@ -25,6 +25,7 @@ import contextvars
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -60,6 +61,20 @@ def _nvcc() -> str:
     return str(path)
 
 
+_INCLUDE = re.compile(rb'^#include "([\w.]+)"', re.M)
+
+
+def _digest(src: Path) -> str:
+    """A hash of ``src`` and of the ``csrc`` headers it includes by
+    quoted name (device code shared between sources)."""
+    h = hashlib.sha256()
+    text = src.read_bytes()
+    h.update(text)
+    for header in _INCLUDE.findall(text):
+        h.update((CSRC / header.decode()).read_bytes())
+    return h.hexdigest()[:12]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded ``csrc/<name>.cu`` library, built on first use."""
     with _lock:
@@ -69,7 +84,7 @@ def load_library(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+        digest = _digest(src)
         out = BUILD_DIR / f"lib{name}-{digest}.so"
         t0 = time.perf_counter()
         log = ""

@@ -50,12 +50,15 @@ class MegaLaunch:
     recorded after it; ``result()`` waits for it, reads the words the
     kernel wrote back and returns ``(context words, n_chunks)``.  The first
     ``result()`` checks that the launch did not hit its chunk cap and adds
-    the steps it ran to ``STEPS``."""
+    the steps it ran to ``steps`` (a ``LaunchCounter``, ``STEPS`` for
+    M2/M3)."""
 
-    def __init__(self, name: str, words: torch.Tensor, event, flag, bufs):
+    def __init__(self, name: str, words: torch.Tensor, event, flag, bufs,
+                 steps: LaunchCounter = STEPS):
         self._name, self._words, self._event = name, words, event
         # the kernel reads the flag and the buffers until the event
         self._flag, self._bufs = flag, bufs
+        self._steps = steps
         self._res: Optional[tuple] = None
 
     def query(self) -> bool:
@@ -69,12 +72,14 @@ class MegaLaunch:
                 raise RuntimeError(f"{self._name} ran {w[OUT_CHUNKS]} chunks "
                                    f"without finishing the task: its "
                                    f"control flow is broken")
-            STEPS.inc(self._name, int(w[OUT_STEPS]))
+            self._steps.inc(self._name, int(w[OUT_STEPS]))
             self._res = (w[:CTX_WORDS].copy(), int(w[OUT_CHUNKS]))
         return self._res
 
 
-def _common(ctx_words, budget: int, flag):
+def persistent_words(ctx_words, budget: int, flag):
+    """The context words as the C entries take them; raises on a bad
+    budget or a flag that is not on a CUDA device."""
     words = np.ascontiguousarray(ctx_words, np.int32)
     if words.shape != (CTX_WORDS,):
         raise ValueError(f"context words {words.shape}, expected "
@@ -86,7 +91,13 @@ def _common(ctx_words, budget: int, flag):
     return words
 
 
-def _launched(name, fn, args, bufs, flag) -> MegaLaunch:
+def launch_persistent(name, fn, args, bufs, flag,
+                      launches: LaunchCounter = MEGA_LAUNCHES,
+                      steps: LaunchCounter = STEPS) -> MegaLaunch:
+    """Call the C entry ``fn(*args, flag, progress, words, device,
+    stream)`` on the current stream of ``bufs[0]``'s device, raise if it
+    refused, count the launch in ``launches`` under ``name`` and return
+    the launch; ``bufs`` stay referenced until it is read."""
     device = bufs[0].device
     # thread 0 writes every word at the launch's end: no zeroing
     out = torch.empty(OUT_WORDS, dtype=torch.int32, device=device)
@@ -96,10 +107,10 @@ def _launched(name, fn, args, bufs, flag) -> MegaLaunch:
              device.index or 0, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    MEGA_LAUNCHES.inc(name)
+    launches.inc(name)
     event = torch.cuda.Event()
     event.record(stream)
-    return MegaLaunch(name, out, event, flag, bufs)
+    return MegaLaunch(name, out, event, flag, bufs, steps)
 
 
 def seq_prefill_mega(ctx_words, out: torch.Tensor, state: torch.Tensor,
@@ -110,7 +121,7 @@ def seq_prefill_mega(ctx_words, out: torch.Tensor, state: torch.Tensor,
     per budget unit, chunks of ``budget``, until done (the first token in
     ``out[0, 0]``, out i32[1, W]) or the first boundary ``k >= flag``.
     Returns at once."""
-    words = _common(ctx_words, budget, flag)
+    words = persistent_words(ctx_words, budget, flag)
     device = state.device
     d = state.shape[-1] if state.dim() == 2 else 0
     p = prompt.shape[-1] if prompt.dim() == 2 else 0
@@ -123,10 +134,11 @@ def seq_prefill_mega(ctx_words, out: torch.Tensor, state: torch.Tensor,
     fn = _fn("seq_prefill_mega", _PREFILL_ARGS)
     # every chunk but the last folds at least one position
     max_chunks = prompt_len + 2
-    return _launched("SeqPrefill", fn,
-                     (words.ctypes.data, out.data_ptr(), state.data_ptr(),
-                      prompt.data_ptr(), d, int(prompt_len), int(vocab),
-                      int(budget), max_chunks), (out, state, prompt), flag)
+    return launch_persistent(
+        "SeqPrefill", fn,
+        (words.ctypes.data, out.data_ptr(), state.data_ptr(),
+         prompt.data_ptr(), d, int(prompt_len), int(vocab), int(budget),
+         max_chunks), (out, state, prompt), flag)
 
 
 def seq_decode_mega(ctx_words, out: torch.Tensor, state: torch.Tensor,
@@ -137,7 +149,7 @@ def seq_decode_mega(ctx_words, out: torch.Tensor, state: torch.Tensor,
     the context ``ctx_words``, a step per budget unit, chunks of
     ``budget``, until done or the first boundary ``k >= flag``.  Returns at
     once."""
-    words = _common(ctx_words, budget, flag)
+    words = persistent_words(ctx_words, budget, flag)
     device = state.device
     if state.dim() != 2 or out.dim() != 2:
         raise ValueError(f"state {tuple(state.shape)} and out "
@@ -150,8 +162,8 @@ def seq_decode_mega(ctx_words, out: torch.Tensor, state: torch.Tensor,
         raise ValueError(f"S {s} (at most {MAX_SLOTS}), D {d}, vocab {vocab}")
     fn = _fn("seq_decode_mega", _DECODE_ARGS)
     max_chunks = r + 2
-    return _launched("SeqDecode", fn,
-                     (words.ctypes.data, out.data_ptr(), out.stride(0),
-                      state.data_ptr(), state.stride(0), slots.data_ptr(),
-                      slots.stride(0), s, d, r, int(vocab), int(budget),
-                      max_chunks), (out, state, slots), flag)
+    return launch_persistent(
+        "SeqDecode", fn,
+        (words.ctypes.data, out.data_ptr(), out.stride(0), state.data_ptr(),
+         state.stride(0), slots.data_ptr(), slots.stride(0), s, d, r,
+         int(vocab), int(budget), max_chunks), (out, state, slots), flag)

@@ -15,7 +15,10 @@ from repro_torch.kernels.native import plain_versions, use_kernel  # noqa: F401
 from repro_torch.kernels.seq_lm import kernel as K
 
 
-def _plain(kernel: str, ctx_words, bufs, ints, budget: int, flag):
+def host_loop(kernel: str, ctx_words, bufs, ints, budget: int, flag):
+    """The plain version of a persistent entry: ``make_megakernel``'s host
+    loop over ``kernel``'s chunk body from ``ctx_words``, with the same
+    stop rule; finished before it returns."""
     # the serving layer imports this module: bind it at call time
     from repro_torch.controller.kernels import get_kernel
     from repro_torch.core.context import ContextRecord
@@ -41,8 +44,8 @@ def seq_prefill_mega(ctx_words, out: torch.Tensor, state: torch.Tensor,
                                   vocab, budget, flag)
     ints = np.array([prompt.shape[-1], state.shape[-1], vocab, prompt_len],
                     np.int32)
-    return _plain("SeqPrefill", ctx_words, (out, state, prompt), ints,
-                  budget, flag)
+    return host_loop("SeqPrefill", ctx_words, (out, state, prompt), ints,
+                     budget, flag)
 
 
 def seq_decode_mega(ctx_words, out: torch.Tensor, state: torch.Tensor,
@@ -57,5 +60,5 @@ def seq_decode_mega(ctx_words, out: torch.Tensor, state: torch.Tensor,
                                  flag)
     ints = np.array([state.shape[0], state.shape[1], out.shape[1], vocab],
                     np.int32)
-    return _plain("SeqDecode", ctx_words, (out, state, slots), ints, budget,
-                  flag)
+    return host_loop("SeqDecode", ctx_words, (out, state, slots), ints,
+                     budget, flag)

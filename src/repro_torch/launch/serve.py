@@ -35,8 +35,9 @@ failover):
 
 Decode mode: continuous-batching token serving through the
 ``ServingEngine``, every stream verified against its oracle;
-``--engine megakernel`` runs each surrogate prefill and decode round as one
-persistent launch on the card (M2/M3, ``csrc/seq_lm.cu``):
+``--engine megakernel`` runs each prefill and decode round as one
+persistent launch on the card (the surrogate's M2/M3, ``csrc/seq_lm.cu``;
+with ``--lm attention`` M4/M5, ``csrc/attn_lm.cu``):
 
     python -m repro_torch.launch.serve decode --sequences 64 --slots 32 \
         --round-tokens 8 --preempt-every 3 --engine megakernel
@@ -536,9 +537,10 @@ def serve_decode(*, n_sequences: int = 6, prompt_len: int = 12,
     selects the model: ``surrogate`` (the integer-hash LM at whisper-tiny's
     d_model 384 / vocab 51865) or ``attention`` (paged-KV attention over
     the flash and decode kernels; d_model 64 / vocab 101).  In megakernel
-    mode on the card every kernel of the LM needs a persistent entry: the
-    surrogate's run as M2/M3, the attention LM's raise
-    ``NotImplementedError`` before anything is served."""
+    mode on the card each prefill and decode round is one persistent
+    launch: M2/M3 for the surrogate, M4/M5 for the attention LM; a kernel
+    without a persistent entry raises ``NotImplementedError`` before
+    anything is served."""
     from repro_torch.controller.kernels import get_kernel
     from repro_torch.core.preemption import make_megakernel
     from repro_torch.core.scheduler import Scheduler, SchedulerConfig
@@ -608,9 +610,11 @@ def serve_decode(*, n_sequences: int = 6, prompt_len: int = 12,
         handles.append(serving.submit(
             prompt, SamplingParams(max_new_tokens=mx, seed=i)))
 
+    # every stream first, then the oracles: the replays launch the chunk
+    # path's kernels, and none of them overlaps the serving
+    streams = [h.result(timeout=300.0) for h in handles]
     mismatches = 0
-    for h, (prompt, sd, mx) in zip(handles, specs):
-        got = h.result(timeout=300.0)
+    for h, got, (prompt, sd, mx) in zip(handles, streams, specs):
         if verify:
             if lm == "attention":
                 # replayed with the serving LM's weights, on its device

@@ -17,14 +17,23 @@ GQA attention over a **paged KV cache**, output projection, greedy readout
   the hand-written paged decode kernel (``kernels/decode_attention``,
   ``csrc/decode_attention.cu``), which walks the table itself.
 
-The projections and the readout are plain matrix products outside any
-kernel, as in the reference (there they are XLA's); they stay
-``torch.matmul`` in f32 with TF32 off.  Loop control is on the host: the
-segment start ``c * C`` is a host int, so the reference's
+On the chunk path the projections and the readout are plain matrix
+products outside any kernel, as in the reference (there they are XLA's);
+they stay ``torch.matmul`` in f32 with TF32 off.  Loop control is on the
+host: the segment start ``c * C`` is a host int, so the reference's
 ``dynamic_slice``/``dynamic_update_slice`` become slice writes into
 ``k_new``/``v_new``, and ``q_offset`` enters the kernel as an int argument.
 The buffers are the region's private copies, so each step writes its slot
 of them in place.
+
+Both kernels register a persistent entry (``mega``): in megakernel mode a
+task's chunk loop is one cooperative launch of M4 (``AttnPrefill``) or M5
+(``AttnDecode``) on the card (``csrc/attn_lm.cu``, ``kernels/attn_lm``),
+with the context on the device, B2's or B3's device code, and the
+projections and readout as f32 products inside the launch.  It computes
+``o @ Wo`` and the readout for the rows whose token is kept only (M4: the
+rows that emit in a segment; M5: the live rows), the tokens the chunk body
+keeps from its logits of every row.
 
 KV pages live in two ``[NB, block_size, kv_heads, head_dim]`` device pools
 threaded round to round (``device_result=True``); the host-side page
@@ -57,6 +66,8 @@ from repro_torch.controller.kernels import _REGISTRY, ctrl_kernel, get_kernel
 from repro_torch.core.context import ContextRecord, KVBlockPool
 from repro_torch.core.preemption import for_save, make_pipelined_chunk
 from repro_torch.core.streams import record_ready, to_host, wait_ready
+from repro_torch.kernels.attn_lm.kernel import Geometry
+from repro_torch.kernels.attn_lm.ops import attn_decode_mega, attn_prefill_mega
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.serving.kernels import (COL_ACTIVE, COL_LAST_TOK, COL_N_EMIT,
@@ -113,6 +124,12 @@ class AttentionParams:
     @property
     def table_width(self) -> int:
         return TABLE_META + self.blocks_per_seq
+
+    def geometry(self) -> Geometry:
+        """The model and paging geometry as M4/M5's wrappers take it."""
+        return Geometry(self.d_model, self.vocab, self.n_heads,
+                        self.kv_heads, self.head_dim, self.block_size,
+                        self.max_ctx)
 
 
 # -- weights -------------------------------------------------------------
@@ -282,6 +299,18 @@ def _params_tag(p: AttentionParams) -> str:
             f"hd{p.head_dim}b{p.block_size}c{p.max_ctx}s{p.seed}")
 
 
+def _persistent(name: str, p: AttentionParams, decode: bool):
+    """The megakernel engine's entry for ``name``: M5 (``decode``) or M4,
+    at ``p``'s geometry as ints."""
+    g = p.geometry()
+    launch = attn_decode_mega if decode else attn_prefill_mega
+
+    def entry(ctx_words, bufs, ints, floats, budget, flag):
+        return launch(name, ctx_words, bufs, g, budget, flag)
+
+    return entry
+
+
 def register_attention_kernels(
         p: Optional[AttentionParams] = None) -> Tuple[str, str]:
     """Register (idempotently) the prefill/decode bitstreams for ``p``
@@ -296,13 +325,17 @@ def register_attention_kernels(
                                 "weights"),
                     int_args=("PB", "P", "vocab"),
                     default_budget=4, device_result=True,
-                    library="flash_attention")(_make_prefill_fn(p))
+                    library="flash_attention",
+                    mega=_persistent(names[0], p, decode=False),
+                    mega_library="attn_lm")(_make_prefill_fn(p))
         ctrl_kernel(names[1], backend="PYNQ",
                     ktile_args=("out", "k_pool", "v_pool", "table",
                                 "weights"),
                     int_args=("S", "R", "vocab"),
                     default_budget=4, device_result=True,
-                    library="decode_attention")(_make_decode_fn(p))
+                    library="decode_attention",
+                    mega=_persistent(names[1], p, decode=True),
+                    mega_library="attn_lm")(_make_decode_fn(p))
     return names
 
 

@@ -1,6 +1,7 @@
 """The port on the card: the hand-written CUDA kernels (blur, the
 persistent blur megakernel M1, flash attention, decode attention, RG-LRU
-scan, RWKV-6) against their plain PyTorch versions, the Client's
+scan, RWKV-6, the persistent LM kernels M2-M5) against their plain
+PyTorch versions, the Client's
 preempt/resume path through CUDA streams (the elastic pool's grow and
 drain among them, the megakernel engine's flag exits, and a migration
 between two shells of a cluster frontend),
@@ -1023,9 +1024,178 @@ def test_cuda_serve_decode_streams_equal_oracle(cuda_device, engine):
         assert launches == (0, 0)
 
 
-def test_cuda_serve_decode_attention_megakernel_raises(cuda_device):
-    with pytest.raises(NotImplementedError, match="§A.3"):
-        S.serve_decode(lm="attention", engine="megakernel", quiet=True)
+def test_cuda_serve_decode_attention_megakernel_streams_equal_oracle(
+        cuda_device, monkeypatch):
+    """``serve decode --lm attention --engine megakernel`` on cuda:0, a
+    probe every 2nd round: every stream verifies against
+    ``attention_oracle_stream`` inside ``serve_decode``; every prefill and
+    round is one launch of M4/M5, rounds exit on the flag, and neither B2
+    nor B3 is launched on the way: their counts, read when the first
+    oracle replay starts (after the last stream is done), are 0, and the
+    replays, which go through the chunk path, launch both."""
+    from repro_torch.kernels.attn_lm import kernel as AK
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.serving import attention as A
+
+    oracle, at_replay, replays = A.attention_oracle_stream, [], []
+
+    def counted_oracle(*args, **kwargs):
+        if not at_replay:
+            at_replay.append((FK.LAUNCHES.total(), DK.LAUNCHES.total()))
+        replays.append(1)
+        return oracle(*args, **kwargs)
+
+    monkeypatch.setattr(A, "attention_oracle_stream", counted_oracle)
+    for counter in (AK.MEGA_LAUNCHES, FK.LAUNCHES, DK.LAUNCHES):
+        counter.reset()
+    rep = S.serve_decode(n_sequences=6, prompt_len=12, max_new=12, slots=4,
+                         round_tokens=4, preempt_every=2, lm="attention",
+                         engine="megakernel", quiet=True)
+    assert rep["n_finished"] == 6 and rep["decode_preemptions"] >= 1
+    assert len(replays) == 6 and at_replay == [(0, 0)]
+    assert FK.LAUNCHES.total() > 0 and DK.LAUNCHES.total() > 0
+    assert AK.MEGA_LAUNCHES["AttnPrefill"] == rep["prefill_tasks"]
+    assert AK.MEGA_LAUNCHES["AttnDecode"] == (rep["decode_rounds"]
+                                              + rep["decode_preemptions"])
+
+
+# -- M4/M5, the attention LM's persistent entries ----------------------------
+# the default geometry, and one with B2/B3's other plans: a group of 8
+# (heads a block 8), hd 64, 4 keys a warp step, 2 prefill segments
+ATTN_GEOMETRIES = (AttentionParams(),
+                   AttentionParams(d_model=256, vocab=1000, n_heads=16,
+                                   kv_heads=2, head_dim=64, block_size=16,
+                                   max_ctx=32, seed=5))
+
+
+def _attn_inputs(kind, dev, p, seed, PB=3, S=5, R=5):
+    """One attention-LM task's buffers on the card (two sets, the weights
+    shared) and its scalars: ``PB`` prompts of 1 to ``max_ctx`` tokens, or
+    ``S`` slot rows of an ``R``-step round (row 0 live all round, row 1
+    dead, the others at random) over shuffled pages."""
+    from repro_torch.serving import attention as A
+
+    rng = np.random.default_rng(seed)
+    if kind == "prefill":
+        prompt = np.zeros((PB, p.max_ctx), np.int32)
+        meta = np.zeros((PB, A.META_W), np.int32)
+        for r in range(PB):
+            n = int(rng.integers(1, p.max_ctx + 1))
+            prompt[r, :n] = rng.integers(0, p.vocab, n)
+            meta[r, 0] = n
+        kv = np.zeros((PB, p.max_ctx, p.kv_heads, p.head_dim), np.float32)
+        bufs = (np.full((PB, A.PREFILL_OUT_W), -1, np.int32), kv, kv.copy(),
+                prompt, meta)
+        scalars = dict(PB=PB, P=p.max_ctx, vocab=p.vocab)
+    else:
+        NB = S * p.blocks_per_seq + 1
+        shape = (NB, p.block_size, p.kv_heads, p.head_dim)
+        k_pool = rng.standard_normal(shape).astype(np.float32)
+        v_pool = rng.standard_normal(shape).astype(np.float32)
+        k_pool[0] = v_pool[0] = 0.0
+        table = np.zeros((S, p.table_width), np.int32)
+        pages = rng.permutation(np.arange(1, NB))
+        for s in range(S):
+            pos = int(rng.integers(1, p.max_ctx - R))
+            table[s, 0] = (1, 0)[s] if s < 2 else int(rng.integers(0, 2))
+            table[s, 1] = R if s == 0 else int(rng.integers(0, R + 1))
+            table[s, 2] = int(rng.integers(0, p.vocab))
+            table[s, A.COL_SEQ_LEN] = pos
+            n_blk = -(-(pos + R) // p.block_size)
+            table[s, A.TABLE_META:A.TABLE_META + n_blk] = pages[
+                s * p.blocks_per_seq:s * p.blocks_per_seq + n_blk]
+        bufs = (np.full((S, R), -1, np.int32), k_pool, v_pool, table)
+        scalars = dict(S=S, R=R, vocab=p.vocab)
+    w = A.load_weights(A.build_weights(p), dev)
+    mine = tuple(torch.tensor(b, device=dev) for b in bufs) + (w,)
+    return mine, tuple(b.clone() for b in mine[:-1]) + (w,), scalars
+
+
+def _attn_step(kind, p, mine, plain, scalars, ctx, budget, flag, boundary):
+    """One launch of M4/M5 and of its plain version (the host loop over the
+    chunk body, on the card) from ``ctx`` with the flag at ``boundary``:
+    equal context words, chunk counts and progress, tokens and tables
+    bitwise, K/V within 2e-5.  Returns the context after it."""
+    from repro_torch.kernels.attn_lm import kernel as AK
+    from repro_torch.serving import attention as A
+
+    names = A.register_attention_kernels(p)
+    name = names[0] if kind == "prefill" else names[1]
+    kd = get_kernel(name)
+    flag.write(boundary)
+    key = "AttnPrefill" if kind == "prefill" else "AttnDecode"
+    launches = AK.MEGA_LAUNCHES[key]
+    launch = (AK.attn_prefill_mega(ctx.to_words(), *mine, p.geometry(),
+                                   budget, flag) if kind == "prefill" else
+              AK.attn_decode_mega(ctx.to_words(), *mine, p.geometry(),
+                                  budget, flag))
+    words, n = launch.result()
+    assert AK.MEGA_LAUNCHES[key] == launches + 1
+    assert flag.progress() == n
+    _, ints, floats = kd.bundle(*plain, **scalars).padded()
+    want, _, want_n = make_megakernel(kd)(ctx, plain, ints, floats, budget,
+                                          flag).result()
+    torch.cuda.synchronize()
+    assert n == want_n
+    np.testing.assert_array_equal(words, want.to_words())
+    for a, b in zip(mine[:-1], plain[:-1]):
+        if a.dtype == torch.int32:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=F32_TOL)
+    flag.clear()
+    return want
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("budget", [1, 2, 4])
+@pytest.mark.parametrize("p", ATTN_GEOMETRIES, ids=["default", "group8"])
+def test_cuda_attn_mega_matches_plain_version(cuda_device, kind, budget, p):
+    """M4/M5 against their plain versions on the card: a whole task in one
+    launch, then the flag at every boundary of a fresh task and its
+    resume."""
+    steps = p.max_ctx // p.block_size if kind == "prefill" else 5
+    flag = PreemptFlag(cuda_device)
+    mine, plain, sc = _attn_inputs(kind, cuda_device, p, seed=budget)
+    ctx = _attn_step(kind, p, mine, plain, sc, ContextRecord.fresh(), budget,
+                     flag, 0)
+    assert ctx.done == 1
+    for k in range(1, -(-steps // budget) + 1):
+        mine, plain, sc = _attn_inputs(kind, cuda_device, p, seed=k)
+        ctx = ContextRecord.fresh()
+        while not ctx.done:
+            ctx = _attn_step(kind, p, mine, plain, sc, ctx, budget, flag, k)
+
+
+def test_cuda_attn_mega_wrappers_reject_bad_inputs(cuda_device):
+    from repro_torch.kernels.attn_lm import kernel as AK
+
+    p = AttentionParams()
+    g = p.geometry()
+    flag = PreemptFlag(cuda_device)
+    words = ContextRecord.fresh().to_words()
+    mine, _, _ = _attn_inputs("prefill", cuda_device, p, seed=0)
+    with pytest.raises(ValueError, match="head dim"):
+        AK.attn_prefill_mega(words, *mine, g._replace(head_dim=132), 1, flag)
+    with pytest.raises(ValueError, match="head dim"):
+        AK.attn_prefill_mega(words, *mine, g._replace(head_dim=18), 1, flag)
+    with pytest.raises(ValueError, match="budget"):
+        AK.attn_prefill_mega(words, *mine, g, 0, flag)
+    with pytest.raises(ValueError, match="PreemptFlag"):
+        AK.attn_prefill_mega(words, *mine, g, 1, PreemptFlag())
+    with pytest.raises(ValueError, match="CUDA"):
+        AK.attn_prefill_mega(words, mine[0].cpu(), *mine[1:], g, 1, flag)
+    cut = tuple(t[:, :8].contiguous() for t in mine[:5])
+    with pytest.raises(ValueError, match="max_ctx"):
+        AK.attn_prefill_mega(words, *cut, mine[5], g, 1, flag)
+    mine, _, _ = _attn_inputs("decode", cuda_device, p, seed=0, S=129)
+    with pytest.raises(ValueError, match="at most 128"):
+        AK.attn_decode_mega(words, *mine, g, 1, flag)
+    mine, _, _ = _attn_inputs("decode", cuda_device, p, seed=0)
+    with pytest.raises(ValueError, match="table"):
+        AK.attn_decode_mega(words, *mine[:3], mine[3][:, :4], mine[4], g, 1,
+                            flag)
 
 
 @pytest.mark.parametrize("cmd", ["scheduler", "cluster"])

@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module (among
 them ``core.pool``, ``controller.controller``, ``obs`` with its six
 modules, the megakernel engine's, the cluster fabric, the checkpoint
-store, the surrogate LM's persistent kernels and the serve CLI) and
+store, the surrogate and attention LMs' persistent kernels and the serve
+CLI) and
 ``chip_smoke.py``
 brings in neither ``jax`` nor any ``repro.`` module."""
 import os
@@ -37,7 +38,11 @@ for name in ("repro_torch.core.pool", "repro_torch.controller.controller",
              "repro_torch.ckpt", "repro_torch.ckpt.store",
              # the surrogate LM's persistent kernels and the serve CLI
              "repro_torch.kernels.seq_lm", "repro_torch.kernels.seq_lm.kernel",
-             "repro_torch.kernels.seq_lm.ops", "repro_torch.launch.serve"):
+             "repro_torch.kernels.seq_lm.ops", "repro_torch.launch.serve",
+             # the attention LM's persistent kernels
+             "repro_torch.kernels.attn_lm",
+             "repro_torch.kernels.attn_lm.kernel",
+             "repro_torch.kernels.attn_lm.ops"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)

@@ -15,7 +15,8 @@ over the chunk entry with the reference's stop rule).
   equal; ``ops.blur_mega`` (the persistent entry's plain version) against
   the reference's ``make_megakernel`` called directly;
 - on the card the engine runs only through a kernel's persistent entry:
-  a kernel without one raises, and the host loop is never bound there;
+  a kernel without one (registered by the test: every built-in task has
+  one) raises, and the host loop is never bound there;
 - the serving engine's preempt probe arms the one-shot flag in megakernel
   mode, and the streams stay equal to the oracle.
 
@@ -599,16 +600,27 @@ def test_cuda_region_binds_only_the_persistent_entry():
     assert type(budget) is int
 
 
-@pytest.mark.parametrize("kernel", ["AttnPrefill", "AttnDecode"])
-def test_kernels_without_a_persistent_entry_raise_on_the_card(kernel):
-    """The attention kernels have no persistent entry yet: on a CUDA engine
-    the ``"mega"`` program raises at reconfig (before any build) naming
-    the later slice, and nothing falls back to the host loop.  On the CPU
-    the plain version binds them, as the reference's CPU backend does."""
-    kd = P_kernels.get_kernel(kernel)
+@pytest.mark.parametrize("library", [None, "flash_attention"])
+def test_kernels_without_a_persistent_entry_raise_on_the_card(library,
+                                                              monkeypatch):
+    """A kernel registered without ``mega=`` (one whose chunk body runs
+    plain torch, and one that launches a CUDA kernel a chunk): on a CUDA
+    engine the ``"mega"`` program raises at reconfig (before any build),
+    and nothing falls back to the host loop.  On the CPU the plain version
+    binds it, as the reference's CPU backend does."""
+    name = f"NoPersistentEntry_{library}"
+    # registered for this test only
+    monkeypatch.setitem(P_kernels._REGISTRY, name, None)
+
+    @P_kernels.ctrl_kernel(name, backend="PYNQ", ktile_args=("x",),
+                           library=library)
+    def body(ctx, bufs, ints, floats):
+        return ctx.finish(), bufs
+
+    kd = P_kernels.get_kernel(name)
     assert kd.mega is None
     engine = ReconfigEngine(device=torch.device("cuda", 0))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="has none"):
         engine._compile(kd, None, None, program="mega")
     assert callable(P_pre.make_megakernel(kd, torch.device("cpu")))
 

@@ -15,8 +15,8 @@ reference's (``repro.launch.serve``), side by side on the CPU
 - the parser: each subcommand takes the reference's flags and ``--device``;
   ``_translate_legacy`` maps legacy invocations as the reference does;
 - every subcommand runs on ``cuda:0`` unless told otherwise, and
-  ``decode --lm attention --engine megakernel`` on the card raises
-  ``NotImplementedError`` before it serves;
+  ``decode --lm attention --engine megakernel`` on the card binds the
+  attention kernels' persistent entries (M4/M5) before it serves;
 - ``python -m repro_torch.launch.serve decode --device cpu`` end to end,
   with ``--metrics-out`` and ``--trace-out``.
 
@@ -104,14 +104,51 @@ def test_decode_streams_equal_oracle_and_reference(monkeypatch, engine, lm):
         assert p_rep["decode_preemptions"] >= 1
 
 
-def test_decode_attention_megakernel_on_the_card_raises():
-    """The attention LM's kernels have no persistent entry: on a CUDA
-    device ``decode --lm attention --engine megakernel`` raises the
-    megakernel engine's ``NotImplementedError`` before it builds a shell
-    (so it raises the same without a card)."""
-    with pytest.raises(NotImplementedError, match="§A.3"):
+def test_decode_attention_megakernel_binds_the_persistent_entries(
+        monkeypatch):
+    """The attention LM's kernels carry persistent entries (M4/M5): on a
+    CUDA device ``decode --lm attention --engine megakernel`` gets past the
+    up-front check, binding ``AttnPrefill``'s and ``AttnDecode``'s ``mega``
+    (stubbed here, so it runs without a card: the bound launches hand
+    their arguments to the stubs), and goes on to build its shell."""
+    import dataclasses
+
+    from repro_torch.controller import kernels as PK
+    from repro_torch.core import preemption as PP
+    from repro_torch.core import shell as PS
+    from repro_torch.core.context import ContextRecord
+
+    names = P_serve._lm_kernels("attention", 64, 101)
+    calls, bound = [], []
+    for name in names:
+        monkeypatch.setitem(PK._REGISTRY, name, dataclasses.replace(
+            PK.get_kernel(name),
+            mega=lambda *args, name=name: calls.append((name, args[1:]))))
+    real = PP.make_megakernel
+
+    def recording(kd, device=None):
+        fn = real(kd, device)
+        bound.append((kd.name, torch.device(device), fn))
+        return fn
+
+    class ShellBuilt(Exception):
+        pass
+
+    def shell(*args, **kw):
+        raise ShellBuilt
+
+    monkeypatch.setattr(PP, "make_megakernel", recording)
+    monkeypatch.setattr(PS, "Shell", shell)
+    with pytest.raises(ShellBuilt):
         P_serve.serve_decode(lm="attention", engine="megakernel",
                              device="cuda:0", quiet=True)
+    assert [n for n, _, _ in bound] == list(names) == ["AttnPrefill",
+                                                       "AttnDecode"]
+    for name, device, fn in bound:
+        assert device == torch.device("cuda", 0)
+        fn(ContextRecord.fresh(), "bufs", "ints", "floats", 3, "flag")
+    assert calls == [(n, ("bufs", "ints", "floats", 3, "flag"))
+                     for n in names]
 
 
 # ------------------------------------------------------ scheduler / cluster
