@@ -242,7 +242,25 @@ Phases, in order; any failure raises and the script exits non-zero:
     at least three input sets of more than 100 MB together, as the main
     path finds its inputs: written by the projections, not yet read).
     PyTorch has no single call for either recurrence, so the library time
-    is null.
+    is null;
+13. ``[train]``, the training half, which launches none of B1-B5: RWKV-6
+    1.6B at full width and depth in f32 through ``launch/train.py``'s
+    ``train_loop`` (batch 8, seq 128, 8 steps, no checkpoint): every loss
+    finite and the last below the first, every parameter leaf the model
+    reads with a nonzero gradient on the first step (only the unapplied
+    gate's ``mu_g``/``wg`` zero, as in the reference) and B4/B5 never
+    launched; the step time (median of steps 2-8), tokens/s, the
+    model-FLOP share of the f32 peak (``mfu_f32``) and peak memory, with
+    the card's SM clock, power draw and temperature sampled by
+    ``nvidia-smi`` every 0.5 s through the run; one step more traced by
+    ``torch.profiler``: the card's busy share and its time by kernel.  Then
+    ``examples/torch_train_100m.py``'s model for 20 steps with a
+    checkpoint every 10; 5 straight steps against a crash after step 3's
+    checkpoint and a restart (reduced h2o-danube, batch 2, seq 32) within
+    1e-5; and ``examples/torch_multi_tenant_serve.py`` on cuda:0: serving
+    requests placed by ``on_chunk`` preempt the training task at least
+    once, and its final state must equal an uninterrupted run's (rerun
+    with deterministic algorithms if it does not; at most 1e-6 then).
 
 The last three lines of standard output are the kernel JSON record, the
 card line, and ``{"ok": true, "device": {...}}``.  The script imports
@@ -415,6 +433,8 @@ REPLACES_ATTN = {
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:22"}
 # the recurrent models, served at full width (src/repro/configs/)
 RECURRENT_ARCHS = ("rwkv6-1.6b", "recurrentgemma-9b")
+TRAIN = {"arch": "rwkv6-1.6b", "batch": 8, "seq": 128, "steps": 8}
+TRAIN_100M = {"steps": 20, "ckpt_every": 10}
 SERVE_LM = {"batch": 4, "prompt_len": 128, "gen": 32, "seed": 0}
 # the prefill logits of the kernel path against the plain replay: B5 sums
 # each readout in another order than the plain einsum, and over 24 layers
@@ -3761,6 +3781,318 @@ def decode_phase(dev) -> tuple:
     return records, summary
 
 
+# -- [train]: the training half at full width ---------------------------------
+
+def _example(name: str):
+    """``examples/<name>.py`` as a module (the examples are no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _CardSampler:
+    """``nvidia-smi``'s SM clock (MHz), power draw (W) and temperature (C)
+    every ``period_s`` on a thread while the block runs: whether the card
+    held its clock through a long GEMM-bound run."""
+
+    def __init__(self, period_s: float = 0.5):
+        self.period_s, self.rows = period_s, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(self.period_s):
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+                     "temperature.gpu", "--format=csv,noheader,nounits"],
+                    capture_output=True, text=True, timeout=30).stdout
+                self.rows.append([float(v) for v in
+                                  out.splitlines()[0].split(",")])
+            except (OSError, subprocess.SubprocessError, IndexError,
+                    ValueError):
+                return  # no readable nvidia-smi: the summary says so
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+    def summary(self) -> dict:
+        if not self.rows:
+            return {"samples": 0}
+        clock, power, temp = zip(*self.rows)
+        return {"samples": len(self.rows), "sm_mhz_min": min(clock),
+                "sm_mhz_max": max(clock), "power_w_max": max(power),
+                "temp_c_max": max(temp)}
+
+
+def _timed_train(cfg, dev, tag: str, **kw) -> dict:
+    """``train_loop`` on ``dev`` with a step clock: the step times (each
+    loss is read back to the host before the next step starts), losses,
+    peak device memory."""
+    import torch
+
+    from repro_torch.launch.train import train_loop
+
+    ends = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, losses = train_loop(cfg, device=dev, quiet=True,
+                               on_step=lambda step, m: ends.append(
+                                   time.perf_counter()), **kw)
+    step_s = [b - a for a, b in zip([t0] + ends[:-1], ends)]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"[train] {tag}: a loss is not finite: "
+                             f"{losses}")
+    return {"state": state, "losses": losses, "step_s": step_s,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def train_phase(dev, card: str) -> dict:
+    """[train]: RWKV-6 1.6B trained at full width in f32 through
+    ``train_loop`` (step time, tokens/s, model-FLOP share of the f32 peak,
+    peak memory; a nonzero gradient on every leaf the model reads, none
+    through B4/B5), the ``torch_train_100m`` example's model with
+    checkpoints, the crash-and-restart equivalence on the card, and the
+    multi-tenant example: serving preempts training, whose final state
+    must equal an uninterrupted run's."""
+    import gc
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+    import torch.utils._pytree as pytree
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.ckpt.store import _flatten
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels.rglru_scan import kernel as GK
+    from repro_torch.kernels.rwkv6 import kernel as WK
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import lm as LM
+    from repro_torch.optim import AdamWConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+
+    # 1. RWKV-6 1.6B, full width and depth, f32
+    cfg = get_config(TRAIN["arch"])
+    first_grads = {}
+    update = LM.adamw_update
+
+    def watching(grads, *args, **kw):
+        if not first_grads:
+            for path, g in pytree.tree_flatten_with_path(grads)[0]:
+                first_grads[pytree.keystr(path)] = bool((g != 0).any())
+        return update(grads, *args, **kw)
+
+    GK.LAUNCHES.reset()
+    WK.LAUNCHES.reset()
+    LM.adamw_update = watching
+    try:
+        with _CardSampler() as card_state:
+            run = _timed_train(cfg, dev, "rwkv6", steps=TRAIN["steps"],
+                               batch=TRAIN["batch"], seq=TRAIN["seq"])
+    finally:
+        LM.adamw_update = update
+    recurrences = GK.LAUNCHES.total() + WK.LAUNCHES.total()
+    # one step more, traced: the card's busy share and where its time goes
+    opt = AdamWConfig(warmup_steps=1, total_steps=TRAIN["steps"])
+    batch = SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN["seq"],
+        global_batch=TRAIN["batch"])).batch(TRAIN["steps"])
+    step_fn = LM.make_train_step(cfg, opt, remat="full", q_chunk=64)
+    with tempfile.TemporaryDirectory() as tmp:
+        prof_json = os.path.join(tmp, "profile.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("train_window"):
+                state, metrics = step_fn(run.pop("state"), batch)
+                float(metrics["loss"])
+                torch.cuda.synchronize()
+        prof.export_chrome_trace(prof_json)
+        share = _busy_share(prof_json, "train_window")
+    _log_by_kernel("train, traced step", _by_kernel(prof))
+    log(f"[train] traced step: the card busy {share['busy_ms']:.3f} ms of "
+        f"the {share['window_ms']:.3f} ms window, busy share "
+        f"{share['busy_share']:.4f}; {share['kernel_n']} kernels "
+        f"({share['kernel_ms']:.3f} ms), {share['gpu_memcpy_n']} copies, "
+        f"{share['gpu_memset_n']} memsets")
+    del state, metrics, prof
+    zero = sorted(k for k, nonzero in first_grads.items() if not nonzero)
+    # RWKV's output gate g is computed and never applied (the reference's
+    # parity choice), so mu_g and wg are the leaves the loss never reads
+    unread = [k for k in first_grads if k.endswith(("['mu_g']", "['wg']"))]
+    if zero != sorted(unread) or len(unread) != 2:
+        raise AssertionError(f"[train] rwkv6: leaves without a gradient on "
+                             f"the first step {zero}; expected exactly "
+                             f"{sorted(unread)} (B4/B5 would cut the "
+                             f"time-mix projections)")
+    if recurrences:
+        raise AssertionError(f"[train] the training route launched B4/B5 "
+                             f"{recurrences} times")
+    losses, step_s = run["losses"], run["step_s"]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] rwkv6: the loss did not fall: "
+                             f"{losses}")
+    med = statistics.median(step_s[1:])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    n_params = cfg.param_count()
+    flop = 6 * n_params * tokens
+    out["rwkv6"] = {
+        "params": n_params, "step_s_median": med,
+        "step_s": step_s, "tokens_per_s": tokens / med,
+        "mfu_f32": flop / med / F32_OPS_PER_S,
+        "model_tflop_per_step": flop / 1e12,
+        "peak_gb": run["peak_gb"], "loss_first": losses[0],
+        "loss_last": losses[-1], "leaves": len(first_grads),
+        "zero_grad_leaves": zero, "b4_b5_launches": recurrences,
+        "card": card_state.summary(),
+        "traced_step": {k: share[k] for k in ("window_ms", "busy_ms",
+                                              "busy_share", "kernel_n")}}
+    log(f"[train] rwkv6-1.6b f32, {n_params / 1e9:.3f} B params, batch "
+        f"{TRAIN['batch']} x seq {TRAIN['seq']}, {TRAIN['steps']} steps: "
+        f"step {med * 1e3:.3f} ms (median of steps 2-{TRAIN['steps']}; all, "
+        f"the first with the weights' draw, "
+        f"{[round(t * 1e3, 3) for t in step_s]}), {tokens / med:.1f} tokens/s, "
+        f"mfu_f32 {flop / med / F32_OPS_PER_S:.4f} ({flop / 1e12:.3f} model "
+        f"TFLOP a step over {F32_OPS_PER_S / 1e12:g} TFLOP/s; remat adds a "
+        f"forward), peak {run['peak_gb']:.3f} GB, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; {len(first_grads) - len(zero)} of "
+        f"{len(first_grads)} leaves with a nonzero first-step gradient (the "
+        f"other two: RWKV's unapplied gate, as the reference); B4/B5 "
+        f"launched {recurrences} times; card {card}, during the run "
+        f"{card_state.summary()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the train_100m example's model with checkpoints, then restart
+    log(f"[train] allocated before the 100m run: "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        m100 = _example("torch_train_100m").config()
+        run = _timed_train(m100, dev, "100m", steps=TRAIN_100M["steps"],
+                           batch=8, seq=256, lr=6e-4,
+                           ckpt_base=os.path.join(tmp, "m100", "ck"),
+                           ckpt_every=TRAIN_100M["ckpt_every"])
+        del run["state"]
+        med = statistics.median(run["step_s"][1:])
+        written = sorted(os.listdir(os.path.join(tmp, "m100")))
+        if not any(f.endswith(".json") for f in written):
+            raise AssertionError(f"[train] 100m: no checkpoint written: "
+                                 f"{written}")
+        out["100m"] = {"params": m100.param_count(), "step_s_median": med,
+                       "step_s": run["step_s"],
+                       "tokens_per_s": 8 * 256 / med,
+                       "peak_gb": run["peak_gb"],
+                       "loss_first": run["losses"][0],
+                       "loss_last": run["losses"][-1]}
+        log(f"[train] {m100.name} ({m100.param_count() / 1e6:.1f} M params) "
+            f"{TRAIN_100M['steps']} steps, a checkpoint every "
+            f"{TRAIN_100M['ckpt_every']}: step {med * 1e3:.3f} ms (median, "
+            f"checkpoint steps included; all "
+            f"{[round(t * 1e3, 3) for t in run['step_s']]}), loss "
+            f"{run['losses'][0]:.4f} -> "
+            f"{run['losses'][-1]:.4f}, peak {run['peak_gb']:.3f} GB, files "
+            f"{written}")
+
+        # 5 straight steps against a crash after step 3's checkpoint and a
+        # restart, at the reference test's shape
+        h2o = get_config("h2o-danube-3-4b").reduced()
+        kw = dict(steps=5, batch=2, seq=32, quiet=True, device=dev)
+
+        class Crash(Exception):
+            pass
+
+        def crash(step, metrics):
+            if step + 1 == 3:
+                raise Crash
+
+        full, losses = train_loop(h2o, ckpt_every=100, ckpt_base=os.path.join(
+            tmp, "a", "ck"), **kw)
+        try:
+            train_loop(h2o, ckpt_every=3, on_step=crash,
+                       ckpt_base=os.path.join(tmp, "b", "ck"), **kw)
+            raise AssertionError("[train] the crash hook did not fire")
+        except Crash:
+            pass
+        resumed, tail = train_loop(h2o, ckpt_every=100,
+                                   ckpt_base=os.path.join(tmp, "b", "ck"),
+                                   **kw)
+        a, b = _flatten(full)[0], _flatten(resumed)[0]
+        diff = max(float((x.double() - y.double()).abs().max())
+                   for x, y in zip(a, b))
+        bitwise = all(torch.equal(x, y) for x, y in zip(a, b))
+        ok = all(torch.allclose(x, y, rtol=1e-5, atol=1e-5)
+                 for x, y in zip(a, b))
+        out["restart"] = {"max_abs_diff": diff, "bitwise": bitwise,
+                          "losses": losses, "resumed_losses": tail}
+        log(f"[train] restart (h2o-danube reduced, batch 2, seq 32): 5 "
+            f"straight against crash after 3 + restart: max |diff| "
+            f"{diff:.3e} over {len(a)} leaves, bitwise {bitwise}; losses "
+            f"{losses[3:]} against {tail}")
+        if not ok or not all(math.isfinite(v) for v in losses + tail):
+            raise AssertionError(f"[train] restart differs: {diff:.3e}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 3. the multi-tenant example on cuda:0
+    mt = _example("torch_multi_tenant_serve")
+    t0 = time.perf_counter()
+    got, want = mt.run(dev), mt.run(dev, serve=False)
+    wall = time.perf_counter() - t0
+    diff = max(float(abs(x.astype("float64") - y).max())
+               for x, y in zip(got["state"], want["state"]))
+    how = "as is"
+    if diff != 0.0:
+        # a resumed chunk may run on the other region's stream: retry with
+        # deterministic algorithms and a fixed cuBLAS workspace
+        log(f"[train] multi-tenant: final state differs by {diff:.3e} from "
+            f"the uninterrupted run; rerunning both deterministically")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        try:
+            got, want = mt.run(dev), mt.run(dev, serve=False)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        diff = max(float(abs(x.astype("float64") - y).max())
+                   for x, y in zip(got["state"], want["state"]))
+        how = "deterministic algorithms, CUBLAS_WORKSPACE_CONFIG=:4096:8"
+    rep = got["report"]
+    out["multi_tenant"] = {"preemptions": got["preemptions"],
+                           "regions": got["regions"], "max_abs_diff": diff,
+                           "how": how, "n_done": rep["n_done"],
+                           "wall_s": got["wall_s"],
+                           "wall_uninterrupted_s": want["wall_s"]}
+    log(f"[train] multi-tenant (h2o-danube reduced, {mt.TRAIN_STEPS} steps, "
+        f"{mt.N_REQUESTS} serving requests, 2 regions on {dev}): training "
+        f"preempted {got['preemptions']}x on regions {got['regions']}, "
+        f"{rep['n_done']} done; final state against the uninterrupted run: "
+        f"max |diff| {diff:.3e} ({how}); {got['wall_s']:.3f} s against "
+        f"{want['wall_s']:.3f} s uninterrupted ({wall:.3f} s for both)")
+    if got["preemptions"] < 1 or rep["n_done"] != 1 + mt.N_REQUESTS:
+        raise AssertionError("[train] multi-tenant: training was not "
+                             "preempted, or a task did not finish")
+    if diff > 1e-6:
+        raise AssertionError(f"[train] multi-tenant: final state differs "
+                             f"by {diff:.3e}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4013,6 +4345,10 @@ def main() -> int:
 
     records += attention_phases(dev, card)
     records += recurrent_phases(dev, card)
+    t0 = time.perf_counter()
+    trained = train_phase(dev, card)
+    log(f"[train] {json.dumps(trained)}")
+    log(f"[train] {time.perf_counter() - t0:.3f} s")
 
     log(json.dumps({"kernels": records}))
     log(card)

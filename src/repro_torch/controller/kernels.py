@@ -88,6 +88,12 @@ def ctrl_kernel(name: str, backend: str = "PYNQ",
     return deco
 
 
+def register_kernel_def(kd: KernelDef):
+    """Register a ``KernelDef`` built by hand (the decorator's
+    counterpart for kernels whose argument lists are built at run time)."""
+    _REGISTRY[kd.name] = kd
+
+
 def _register_builtin():
     # importing the task modules registers the paper's workload set (blur)
     # and the token-serving prefill/decode kernels (surrogate + attention)

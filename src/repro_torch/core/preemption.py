@@ -73,6 +73,19 @@ def for_save(ctx: ContextRecord, slot: int, start, stop, step,
     return ctx, state
 
 
+def make_chunk_fn(kernel_fn: Callable):
+    """Wrap a preemptible kernel into the plain chunk entry point:
+
+        chunk(ctx, state, ints, floats) -> (ctx, state)
+
+    the region worker re-dispatches it until ``ctx.done == 1``.
+    """
+    def chunk(ctx: ContextRecord, state, ints, floats):
+        return kernel_fn(ctx, state, ints, floats)
+
+    return chunk
+
+
 def make_pipelined_chunk(kernel_fn: Callable):
     """The uniform chunk entry point:
 

@@ -133,6 +133,20 @@ def use_kernel(t) -> bool:
     return t.is_cuda and not _plain.get()
 
 
+def no_grad_kernel(name: str, *inputs):
+    """Raise if autograd records and an input requires a gradient: the
+    hand-written kernel ``name`` has no backward, and launching it would
+    silently cut every gradient that flows through it."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel records no gradient; the training "
+            f"route takes the model's differentiable chunked form "
+            f"(chunked=True)")
+
+
 def check_tensor(t, what: str, shape, device, dtype):
     """Raise unless ``t`` is a CUDA tensor on ``device`` of ``dtype`` and
     ``shape`` with unit stride on its last dim: what a kernel that reads

@@ -1,7 +1,8 @@
 """Carry the reference's parameter and cache trees into the port.
 
-The reference's ``init_params`` and decode caches are pytrees of nested
-dicts and lists; the port's are the same trees of tensors.  The caller
+The reference's ``init_params``, train states and decode caches are
+pytrees of nested dicts and lists; the port's are the same trees of
+tensors.  The caller
 hands the reference's leaves over as numpy arrays (or anything
 ``numpy.asarray`` takes); the tests use this to run both packages on the
 same weights.
@@ -17,7 +18,11 @@ PyTree = Any
 
 
 def _to_tensor(leaf, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(leaf, copy=True)).to(device)
+    arr = np.array(leaf, copy=True)
+    if arr.dtype.name == "bfloat16":  # numpy has no bfloat16 of its own
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(arr).to(device)
 
 
 def _map(tree: PyTree, fn) -> PyTree:
@@ -41,4 +46,16 @@ def cache_from_reference(tree: PyTree, device) -> PyTree:
     out = {k: v for k, v in tree.items() if k != "pos"}
     out = params_from_reference(out, device)
     out["pos"] = int(np.asarray(tree["pos"]))
+    return out
+
+
+def train_state_from_reference(tree: PyTree, device) -> PyTree:
+    """A reference train state (``init_train_state``'s ``params``,
+    ``master``, ``m``, ``v`` and ``step``) -> the port's: the same trees of
+    tensors on ``device`` (bfloat16 leaves stay bfloat16), ``step`` an
+    int32 0-d tensor."""
+    out = {k: params_from_reference(tree[k], device)
+           for k in ("params", "master", "m", "v")}
+    out["step"] = torch.tensor(int(np.asarray(tree["step"])),
+                               dtype=torch.int32, device=device)
     return out

@@ -1,12 +1,23 @@
 """RG-LRU recurrent block (RecurrentGemma / Griffin): the port of the
 reference's ``repro/models/rglru.py``.
 
-The recurrence  h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)  runs
-in ``kernels.rglru_scan`` for every sequence length, the one-token decode
-step included: on the card that is the hand-written CUDA scan, on the CPU
-its plain version.  (The reference computes it with a chunked associative
-scan, and with ``a*h0 + bx`` at T == 1, which is one step of the same
-recurrence.)  Gates are per-channel affine, as in the reference.
+The recurrence  h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)  has
+two routes:
+
+- serving (``chunked=False``, the default): ``kernels.rglru_scan`` for
+  every sequence length, the one-token decode step included; on the card
+  the hand-written CUDA scan (B4), on the CPU its plain version.  B4
+  records no gradient, and its wrapper raises if asked to differentiate;
+- training (``chunked=True``, what ``models/lm.py``'s loss asks for): the
+  reference's chunked associative scan in plain differentiable PyTorch: a
+  loop over chunks of 256 carrying the boundary state, and within a chunk
+  an inclusive scan of log2(chunk) doubling steps (Hillis-Steele) under
+  the reference's combine rule; ``a*h0 + bx`` at T == 1, as the reference.
+  Its tree of products differs from ``jax.lax.associative_scan``'s, so it
+  agrees with the reference to float rounding (held to 1e-5 in the
+  tests, the reference's own rglru tolerance).
+
+Gates are per-channel affine, as in the reference.
 """
 from __future__ import annotations
 
@@ -31,6 +42,36 @@ def _gates(c: torch.Tensor, p: dict):
     return a, beta * (i * c)
 
 
+def _assoc_scan_chunk(a: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor):
+    """Within-chunk parallel prefix for h_t = a_t h_{t-1} + bx_t.
+    a, bx: [B, Cn, L]; h0: [B, L].  Returns (h: [B, Cn, L], h_last)."""
+    aa, bb = a, bx
+    d, n = 1, a.shape[1]
+    while d < n:
+        # combine(l, r) = (a_l a_r, b_l a_r + b_r), l the earlier segment
+        aa, bb = (torch.cat([aa[:, :d], aa[:, :-d] * aa[:, d:]], dim=1),
+                  torch.cat([bb[:, :d], bb[:, :-d] * aa[:, d:] + bb[:, d:]],
+                            dim=1))
+        d *= 2
+    h = bb + aa * h0[:, None, :]
+    return h, h[:, -1, :]
+
+
+def _chunked_scan(a, bx, h0, chunk: int):
+    """The reference's chunked scan: chunks of ``chunk`` carrying the
+    boundary state.  a, bx: [B, T, L] f32; h0: [B, L]."""
+    T = a.shape[1]
+    if T == 1:  # decode fast path
+        h = a[:, 0] * h0 + bx[:, 0]
+        return h[:, None, :], h
+    hs, h = [], h0
+    for t0 in range(0, T, chunk):
+        hs_i, h = _assoc_scan_chunk(a[:, t0:t0 + chunk],
+                                    bx[:, t0:t0 + chunk], h)
+        hs.append(hs_i)
+    return torch.cat(hs, dim=1), h
+
+
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
                   state: Optional[torch.Tensor] = None):
     """x: [B, T, L], w: [W, L] depthwise.  state: [B, W-1, L] carried
@@ -48,15 +89,23 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
 
 def rglru_apply(x: torch.Tensor, p: dict, *,
                 h0: Optional[torch.Tensor] = None,
-                conv_state: Optional[torch.Tensor] = None
+                conv_state: Optional[torch.Tensor] = None,
+                chunk: int = 256, chunked: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [B, T, D] (post-norm input); h0: [B, L]; conv_state: [B, W-1, L].
-    Returns (y [B,T,D], h_last [B,L], conv_state)."""
+    Returns (y [B,T,D], h_last [B,L], conv_state).  ``chunked`` takes the
+    training route (module docstring)."""
     u = x @ p["wx"]  # [B, T, L]
     g = F.gelu(x @ p["wg"], approximate="tanh")  # jax.nn.gelu's default
     c, conv_state = causal_conv1d(u, p["conv"], conv_state)
     a, bx = _gates(c.float(), p)
-    hs, h_last = ops.rglru_scan(a, bx, h0)
+    if not chunked:
+        hs, h_last = ops.rglru_scan(a, bx, h0)
+    else:
+        if h0 is None:
+            h0 = torch.zeros((x.shape[0], a.shape[-1]), dtype=torch.float32,
+                             device=x.device)
+        hs, h_last = _chunked_scan(a, bx, h0, chunk)
     y = (hs.to(x.dtype) * g) @ p["wo"]
     return y, h_last, conv_state
 

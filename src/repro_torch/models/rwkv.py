@@ -6,14 +6,20 @@ Recurrent form (per head):
     o_t = r_t . (S_{t-1} + (u * k_t) v_t^T)         # readout with bonus u
     S_t = diag(w_t) S_{t-1} + k_t v_t^T             # state update
 
-with w_t = exp(-exp(d_t)), d_t a data-dependent (LoRA) decay.  The
-recurrence of ``rwkv_time_mix`` runs in ``kernels.rwkv6`` for every
-sequence length: on the card the hand-written CUDA kernel, on the CPU its
-plain version.  The reference's prefill takes its chunked-parallel form
-(chunks of 64), which agrees with the recurrence to about 4e-6 in the
-logits; that form (``rwkv_time_mix_chunked``) is the training path's and
-comes with the training slice.  ``rwkv_time_mix_scan`` is the reference's
-step-by-step oracle, kept here in plain PyTorch.
+with w_t = exp(-exp(d_t)), d_t a data-dependent (LoRA) decay.  Two routes:
+
+- serving (``chunked=False``, the default): the recurrence of
+  ``rwkv_time_mix`` runs in ``kernels.rwkv6`` for every sequence length,
+  on the card the hand-written CUDA kernel (B5), on the CPU its plain
+  version.  B5 records no gradient, and its wrapper raises if asked to
+  differentiate;
+- training (``chunked=True``, what ``models/lm.py``'s loss asks for): the
+  reference's chunked-parallel form, ``rwkv_time_mix_chunked`` (chunks of
+  64, decay ratios in log space), in plain differentiable PyTorch, and its
+  step-by-step scan at T == 1, as the reference chooses.
+
+The two agree to about 4e-6 in the logits.  ``rwkv_time_mix_scan`` is the
+reference's step-by-step oracle, kept here in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -66,6 +72,52 @@ def rwkv_time_mix_scan(r, k, v, logw, u, s0=None):
     return rwkv6_ref.rwkv6(r, k, v, logw, u, s0)
 
 
+def rwkv_time_mix_chunked(r, k, v, logw, u, s0=None, chunk: int = 64):
+    """Chunked-parallel form, exact (log-space decay ratios): a loop over
+    chunks carrying the state, each chunk an attention-like contraction.
+    Shapes as in ``rwkv_time_mix_scan``; differentiable."""
+    B, T, H, hd = r.shape
+    if s0 is None:
+        s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                         device=r.device)
+    n = -(-T // chunk)
+    pad = n * chunk - T
+
+    def prep(t):  # [B,T,H,hd] -> [n,B,H,Cn,hd] f32
+        t = t.float()
+        if pad:
+            t = F.pad(t, (0, 0, 0, 0, 0, pad))
+        return t.reshape(B, n, chunk, H, hd).permute(1, 0, 3, 2, 4)
+
+    r, k, v, logw = prep(r), prep(k), prep(v), prep(logw)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=r.device), diagonal=-1)
+    s, outs = s0, []
+    for i in range(n):
+        rc, kc, vc, lw = r[i], k[i], v[i], logw[i]  # [B,H,Cn,hd]
+        cum = torch.cumsum(lw, dim=2)  # log prod up to & incl t
+        total = cum[:, :, -1:, :]
+        cum_excl = cum - lw  # log prod up to t-1
+        # inter-chunk: o_inter[t] = (r_t * exp(cum[t-1])) . S_in
+        r_in = rc * torch.exp(cum_excl)
+        o = torch.einsum("bhtk,bhkv->bhtv", r_in, s)
+        # intra-chunk: A[t,i] = sum_d r[t,d] k[i,d] exp(cum_excl[t]-cum[i])
+        ki = kc * torch.exp(-cum)
+        A = torch.einsum("bhtk,bhik->bhti", r_in, ki)
+        A = torch.where(mask, A, 0.0)
+        o = o + torch.einsum("bhti,bhiv->bhtv", A, vc)
+        # current-token bonus
+        diag = torch.einsum("bhtk,bhtk->bht", rc, u[:, None, :] * kc)
+        o = o + diag[..., None] * vc
+        # S_out = diag(exp(total)) S + sum_i exp(total-cum[i]) k_i v_i^T
+        kscale = kc * torch.exp(total - cum)
+        s = torch.exp(total)[..., 0, :, None] * s + torch.einsum(
+            "bhik,bhiv->bhkv", kscale, vc)
+        outs.append(o)
+    o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, n * chunk, H, hd)
+    return o[:, :T], s
+
+
 def group_norm_heads(o: torch.Tensor, scale: torch.Tensor,
                      eps: float = 64e-5) -> torch.Tensor:
     """RWKV's per-head group norm on the time-mix output.  o: [B,T,H,hd]."""
@@ -76,12 +128,22 @@ def group_norm_heads(o: torch.Tensor, scale: torch.Tensor,
     return y.reshape(B, T, H * hd) * scale
 
 
-def rwkv_time_mix(x, p, n_heads, head_dim, x_prev=None, s0=None):
+def rwkv_time_mix(x, p, n_heads, head_dim, x_prev=None, s0=None,
+                  chunked: bool = False, chunk: int = 64):
     """Full time-mix sublayer on (pre-normed) x: [B,T,D].
-    Returns (y [B,T,D], (x_last [B,D], s_last))."""
+    Returns (y [B,T,D], (x_last [B,D], s_last)).  ``chunked`` takes the
+    training route (module docstring); the reference's default is the
+    chunked form, the port's is B5."""
+    T = x.shape[1]
     # g is computed and, as in the reference, not applied
     r, k, v, _g, logw = rwkv_projections(x, x_prev, p, n_heads, head_dim)
-    o, s_last = ops.rwkv6(r, k, v, logw, p["u"].float(), s0)
+    u = p["u"].float()
+    if not chunked:
+        o, s_last = ops.rwkv6(r, k, v, logw, u, s0)
+    elif T == 1:
+        o, s_last = rwkv_time_mix_scan(r, k, v, logw, u, s0)
+    else:
+        o, s_last = rwkv_time_mix_chunked(r, k, v, logw, u, s0, chunk=chunk)
     y = group_norm_heads(o.to(x.dtype), p["ln_x"]) @ p["wo"]
     return y, (x[:, -1, :], s_last)
 

@@ -5,24 +5,36 @@ Layer kinds: "attn" | "attn_swa" | "attn_local" | "rglru" | "rwkv".  The
 stack is grouped into repeating pattern blocks (``cfg.block_pattern``), and
 each slot's parameters are stacked on a leading block axis, as in the
 reference; where the reference scans that axis with ``lax.scan``, the port
-loops over it in Python.  The reference's ``mesh``, ``remat`` and
-``unroll`` options are not carried over.  MoE FFNs, the encoder-decoder
-stack and the modality frontends come with later slices of the port and
-raise ``NotImplementedError``.
+loops over it in Python (``unroll`` has nothing left to choose).  MoE FFNs
+run on the one card (``models/moe.py``); the reference's ``mesh`` has no
+meaning there and is not carried over.  ``forward``'s ``remat`` is the
+reference's activation checkpointing, through ``torch.utils.checkpoint``;
+its ``chunked`` sends the recurrences down their differentiable training
+route instead of the B4/B5 kernels.  The encoder-decoder stack and the
+modality frontends come with a later slice of the port and raise
+``NotImplementedError``.
+
+The reference's ``_grad_transparent_barrier`` (an XLA scheduling barrier
+that differentiates as identity) has no counterpart: eager PyTorch has no
+schedule to fence.
 
 ``decode_step`` updates the cache in place and returns it (the reference's
 serving loop donates the cache to the same effect).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv as RW
 
@@ -48,10 +60,6 @@ def slot_name(i: int, kind: str) -> str:
 
 def check_supported(cfg: ModelConfig):
     """Raise for the parts of the reference's stack not ported yet."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs (models/moe.py) come with a later slice "
-            f"of the port")
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder stack comes with a later slice "
@@ -67,6 +75,16 @@ def _index(tree: PyTree, i: int) -> PyTree:
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unbind(tree: PyTree, n: int) -> list:
+    """The ``n`` blocks of a stacked tree, as views.  Unbinding once (not
+    indexing per block) gives each leaf one backward node that stacks the
+    blocks' gradients."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _stack(trees: list) -> PyTree:
@@ -92,7 +110,7 @@ class _Init:
     seeded generator.  With ``n``, every tensor is drawn as one stacked
     ``[n, ...]`` tensor: full width never holds a per-block list."""
 
-    def __init__(self, generator: torch.Generator, device, dtype):
+    def __init__(self, generator: Optional[torch.Generator], device, dtype):
         self.g, self.device, self.dtype = generator, device, dtype
 
     def normal(self, shape, std, n=None, dtype=None):
@@ -107,12 +125,16 @@ class _Init:
                            device=self.device)
 
     def ffn(self, cfg: ModelConfig, n=None) -> dict:
+        if cfg.moe is not None:
+            return MOE.init_moe_params(cfg.d_model, cfg.d_ff, cfg.moe,
+                                       generator=self.g, device=self.device,
+                                       dtype=self.dtype, n=n)
         s_in, s_out = 1.0 / math.sqrt(cfg.d_model), 1.0 / math.sqrt(cfg.d_ff)
         return {"w1": self.normal((cfg.d_model, cfg.d_ff), s_in, n),
                 "w3": self.normal((cfg.d_model, cfg.d_ff), s_in, n),
                 "w2": self.normal((cfg.d_ff, cfg.d_model), s_out, n)}
 
-    def attn(self, cfg: ModelConfig, n=None) -> dict:
+    def attn(self, cfg: ModelConfig, n=None, cross: bool = False) -> dict:
         # hc >= n_heads: padded compute heads carry zero weights (inert)
         d, h, hc, kv, hd = (cfg.d_model, cfg.n_heads, cfg.n_heads_c,
                             cfg.n_kv_heads, cfg.head_dim_)
@@ -125,7 +147,7 @@ class _Init:
              "wk": self.normal((d, kv * hd), 1.0 / math.sqrt(d), n),
              "wv": self.normal((d, kv * hd), 1.0 / math.sqrt(d), n),
              "wo": wo}
-        if cfg.qk_norm:
+        if cfg.qk_norm and not cross:
             p["q_norm"] = self.zeros((hd,), n)
             p["k_norm"] = self.zeros((hd,), n)
         return p
@@ -151,8 +173,28 @@ class _Init:
         return p
 
 
-def init_params(cfg: ModelConfig, *, generator: torch.Generator, device,
-                dtype=torch.float32) -> PyTree:
+def init_ffn(cfg: ModelConfig, *, generator: Optional[torch.Generator],
+             device, dtype=torch.float32, n: Optional[int] = None) -> dict:
+    """A block's FFN: dense SwiGLU, or the MoE's router and experts."""
+    return _Init(generator, device, dtype).ffn(cfg, n)
+
+
+def init_attn(cfg: ModelConfig, *, generator: Optional[torch.Generator],
+              device, dtype=torch.float32, cross: bool = False,
+              n: Optional[int] = None) -> dict:
+    """An attention sublayer (``cross``: no qk norms)."""
+    return _Init(generator, device, dtype).attn(cfg, n, cross=cross)
+
+
+def init_block(cfg: ModelConfig, kind: str, *,
+               generator: Optional[torch.Generator], device,
+               dtype=torch.float32, n: Optional[int] = None) -> dict:
+    """One block of ``kind`` (with ``n``, ``n`` blocks stacked)."""
+    return _Init(generator, device, dtype).block(cfg, kind, n)
+
+
+def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator],
+                device, dtype=torch.float32) -> PyTree:
     """The parameter tree of the reference's ``init_params``: ``embed``,
     ``final_norm``, ``unembed`` (unless tied), ``blocks[slot][name]``
     stacked on a leading block axis, and the ``tail`` list.  The draws
@@ -173,8 +215,14 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator, device,
     return params
 
 
+def abstract_params(cfg: ModelConfig, dtype=torch.bfloat16) -> PyTree:
+    """The tree of ``init_params`` on the ``meta`` device: shapes and
+    dtypes without allocating (the counterpart of ``jax.eval_shape``)."""
+    return init_params(cfg, generator=None, device="meta", dtype=dtype)
+
+
 # ==========================================================================
-# Block apply — full sequence (prefill)
+# Block apply — full sequence (train / prefill)
 # ==========================================================================
 def _attn_window(cfg: ModelConfig, kind: str) -> Optional[int]:
     if kind == "attn_swa":
@@ -222,9 +270,31 @@ def _seq_to_ring_cache(k, v, S: int) -> dict:
     return {"k": kc, "v": vc}
 
 
+def cfg_cache_len(cfg: ModelConfig, kind: str) -> int:
+    w = _attn_window(cfg, kind)
+    return w if w is not None else 0
+
+
+def make_cache_len(cfg: ModelConfig, kind: str, seq_len: int) -> int:
+    w = _attn_window(cfg, kind)
+    return min(seq_len, w) if w is not None else seq_len
+
+
+def _ffn(h2, p, cfg: ModelConfig):
+    """(y, aux): the MoE's load-balance loss, or 0."""
+    if cfg.moe is not None:
+        return MOE.moe_ffn(h2, p["ffn"], cfg.moe)
+    y = L.swiglu(h2, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
+    return y, _zero(h2)
+
+
+def _zero(x) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def attn_block_seq(x, p, cfg: ModelConfig, kind: str, positions,
                    want_cache=False, q_chunk=1024):
-    """Returns (x, cache_or_None)."""
+    """Returns (x, cache_or_None, aux_loss)."""
     window = _attn_window(cfg, kind)
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     q, k, v = _proj_qkv(h, p, cfg, positions)
@@ -235,57 +305,64 @@ def attn_block_seq(x, p, cfg: ModelConfig, kind: str, positions,
     B, T, H, hd = o.shape
     x = x + o.reshape(B, T, H * hd) @ p["wo"]
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    x = x + L.swiglu(h2, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
+    y, aux = _ffn(h2, p, cfg)
+    x = x + y
     cache = None
     if want_cache:
         # a windowed ring holds min(window, T) slots: only as long as the
         # prompt, as in the reference
         S = min(window, T) if window else T
         cache = _seq_to_ring_cache(k, v, S)
-    return x, cache
+    return x, cache, aux
 
 
 def rglru_block_seq(x, p, cfg: ModelConfig, want_cache=False, h0=None,
-                    conv_state=None):
+                    conv_state=None, chunked=False):
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     y, h_last, conv_state = RG.rglru_apply(h, p, h0=h0,
-                                           conv_state=conv_state)
+                                           conv_state=conv_state,
+                                           chunked=chunked)
     x = x + y
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     x = x + L.swiglu(h2, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
     cache = {"h": h_last, "conv": conv_state} if want_cache else None
-    return x, cache
+    return x, cache, _zero(x)
 
 
-def rwkv_block_seq(x, p, cfg: ModelConfig, want_cache=False, state=None):
+def rwkv_block_seq(x, p, cfg: ModelConfig, want_cache=False, state=None,
+                   chunked=False):
     """state: None or dict(s, xtm, xcm)."""
     s0 = state["s"] if state else None
     xtm = state["xtm"] if state else None
     xcm = state["xcm"] if state else None
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     y, (x_last_tm, s_last) = RW.rwkv_time_mix(
-        h, p, cfg.n_heads, cfg.rwkv_head_dim, x_prev=xtm, s0=s0)
+        h, p, cfg.n_heads, cfg.rwkv_head_dim, x_prev=xtm, s0=s0,
+        chunked=chunked)
     x = x + y.to(x.dtype)
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     y2, x_last_cm = RW.rwkv_channel_mix(h2, p, x_prev=xcm)
     x = x + y2.to(x.dtype)
     cache = ({"s": s_last, "xtm": x_last_tm.to(x.dtype),
               "xcm": x_last_cm.to(x.dtype)} if want_cache else None)
-    return x, cache
+    return x, cache, _zero(x)
 
 
 def apply_block_seq(x, p, cfg, kind, positions, want_cache=False,
-                    cache_in=None, q_chunk=1024):
+                    cache_in=None, q_chunk=1024, chunked=False):
+    """Returns (x, cache_or_None, aux_loss).  ``chunked``: the recurrences'
+    differentiable training route (``rwkv.py``, ``rglru.py``)."""
     if kind in ATTN_KINDS:
         return attn_block_seq(x, p, cfg, kind, positions,
                               want_cache=want_cache, q_chunk=q_chunk)
     if kind == "rglru":
         st = cache_in or {}
         return rglru_block_seq(x, p, cfg, want_cache=want_cache,
-                               h0=st.get("h"), conv_state=st.get("conv"))
+                               h0=st.get("h"), conv_state=st.get("conv"),
+                               chunked=chunked)
     if kind == "rwkv":
         return rwkv_block_seq(x, p, cfg, want_cache=want_cache,
-                              state=cache_in)
+                              state=cache_in, chunked=chunked)
     raise ValueError(kind)
 
 
@@ -311,7 +388,7 @@ def attn_block_decode(x, p, cache, cfg: ModelConfig, kind: str, pos: int):
     _, _, H, hd = o.shape
     x = x + o.reshape(B, 1, H * hd) @ p["wo"]
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    y = L.swiglu(h2, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
+    y, _ = _ffn(h2, p, cfg)
     return x + y, {"k": kc, "v": vc}
 
 
@@ -319,10 +396,12 @@ def apply_block_decode(x, p, cache, cfg, kind, pos: int):
     if kind in ATTN_KINDS:
         return attn_block_decode(x, p, cache, cfg, kind, pos)
     if kind == "rglru":
-        return rglru_block_seq(x, p, cfg, want_cache=True, h0=cache["h"],
-                               conv_state=cache["conv"])
+        x, st, _ = rglru_block_seq(x, p, cfg, want_cache=True,
+                                   h0=cache["h"], conv_state=cache["conv"])
+        return x, st
     if kind == "rwkv":
-        return rwkv_block_seq(x, p, cfg, want_cache=True, state=cache)
+        x, st, _ = rwkv_block_seq(x, p, cfg, want_cache=True, state=cache)
+        return x, st
     raise ValueError(kind)
 
 
@@ -344,8 +423,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device,
             return torch.zeros(lead + shape, dtype=dt, device=device)
 
         if kind in ATTN_KINDS:
-            w = _attn_window(cfg, kind)
-            S = min(seq_len, w) if w is not None else seq_len
+            S = make_cache_len(cfg, kind, seq_len)
             return {"k": z(batch, S, KV, hd), "v": z(batch, S, KV, hd)}
         if kind == "rglru":
             return {"h": z(batch, cfg.d_model, dt=torch.float32),
@@ -377,37 +455,115 @@ def _readout(params, x, cfg: ModelConfig):
     return x @ unembed
 
 
+def _remat_policy(ctx, op, *args, **kwargs):
+    """"dots": keep the matrix products without batch dims (the
+    reference's ``dots_with_no_batch_dims_saveable``), recompute the
+    rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the reference's activation-checkpointing ``policy``:
+    "none"; "full" and "2level" (recompute the block in the backward);
+    "dots" (save only the matmul outputs)."""
+    if policy == "none":
+        return fn
+    if policy in ("full", "2level"):
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _remat_policy))
+    raise ValueError(policy)
+
+
+def _group_factor(n: int) -> int:
+    """Divisor of n closest to sqrt(n) (for 2-level remat grouping)."""
+    best, target = 1, math.sqrt(n)
+    for g in range(1, n + 1):
+        if n % g == 0 and abs(g - target) < abs(best - target):
+            best = g
+    return best
+
+
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            want_cache: bool = False, q_chunk: int = 1024,
-            last_only: bool = False):
+            want_cache: bool = False, remat: str = "none",
+            q_chunk: int = 1024, last_only: bool = False,
+            chunked: bool = False):
     """Full-sequence forward.  tokens: [B, T] integer.  Returns (logits
-    [B,T,V] (or [B,1,V] with ``last_only``), cache or None).  The cache's
-    ``pos`` is a host int."""
+    [B,T,V] (or [B,1,V] with ``last_only``), cache or None, aux loss):
+    the reference's triple.  The cache's ``pos`` is a host int.
+
+    ``remat`` ("none" | "full" | "2level" | "dots") checkpoints each
+    block's activations as the reference's ``_remat``: "2level" groups the
+    blocks by the divisor of their count nearest its square root and
+    checkpoints each group around its checkpointed blocks (more than 3
+    blocks; otherwise as "full").  It applies while autograd records and
+    no cache is asked for; every mode gives the same loss and gradients.
+    ``chunked`` takes the recurrences' differentiable training route."""
     check_supported(cfg)
+    if remat not in ("none", "full", "2level", "dots"):
+        raise ValueError(remat)
     n_full, pat, tail = stack_structure(cfg)
     B, T = tokens.shape
-    x = params["embed"][tokens.long()]
+    # F.embedding, not indexing: its backward on the card sums a token's
+    # rows in a fixed order (indexing's backward accumulates with atomics)
+    x = F.embedding(tokens.long(), params["embed"])
     positions = torch.arange(T, device=x.device).expand(B, T)
+    blocks = {sn: _unbind(params["blocks"][sn], n_full)
+              for sn in (slot_name(i, kind) for i, kind in enumerate(pat))
+              } if n_full else {}
     block_caches = {slot_name(i, kind): [] for i, kind in enumerate(pat)}
-    for bi in range(n_full):
+
+    def block_body(x, aux, bi):
+        caches = {}
         for i, kind in enumerate(pat):
             sn = slot_name(i, kind)
-            x, c = apply_block_seq(x, _index(params["blocks"][sn], bi), cfg,
-                                   kind, positions, want_cache=want_cache,
-                                   q_chunk=q_chunk)
+            x, c, a = apply_block_seq(x, blocks[sn][bi], cfg, kind,
+                                      positions, want_cache=want_cache,
+                                      q_chunk=q_chunk, chunked=chunked)
+            aux = aux + a
+            caches[sn] = c
+        return x, aux, caches
+
+    aux_total = _zero(x)
+    policy = remat if not want_cache and torch.is_grad_enabled() else "none"
+    if policy == "2level" and n_full > 3:
+        g = _group_factor(n_full)
+        inner = _remat(lambda x, aux, bi: block_body(x, aux, bi)[:2], "full")
+
+        def group_body(x, aux, gi):
+            for bi in range(gi * g, (gi + 1) * g):
+                x, aux = inner(x, aux, bi)
+            return x, aux
+
+        outer = _remat(group_body, "full")
+        for gi in range(n_full // g):
+            x, aux_total = outer(x, aux_total, gi)
+    else:
+        body = _remat(block_body, policy)
+        for bi in range(n_full):
+            x, aux_total, c = body(x, aux_total, bi)
             if want_cache:
-                block_caches[sn].append(c)
+                for sn, cs in c.items():
+                    block_caches[sn].append(cs)
     caches: dict = {"pos": T, "blocks": {}}
     if want_cache and n_full:
         caches["blocks"] = {sn: _stack(cs) for sn, cs in block_caches.items()}
     for i, kind in enumerate(tail):
-        x, c = apply_block_seq(x, params["tail"][i], cfg, kind, positions,
-                               want_cache=want_cache, q_chunk=q_chunk)
+        x, c, a = apply_block_seq(x, params["tail"][i], cfg, kind, positions,
+                                  want_cache=want_cache, q_chunk=q_chunk,
+                                  chunked=chunked)
+        aux_total = aux_total + a
         if want_cache:
             caches.setdefault("tail", []).append(c)
     if last_only:  # prefill: only the last position's logits are needed
         x = x[:, -1:, :]
-    return _readout(params, x, cfg), (caches if want_cache else None)
+    return (_readout(params, x, cfg), (caches if want_cache else None),
+            aux_total)
 
 
 def decode_step(params, cache, token: torch.Tensor, cfg: ModelConfig):
@@ -415,7 +571,7 @@ def decode_step(params, cache, token: torch.Tensor, cfg: ModelConfig):
     cache): the cache is updated in place and returned."""
     n_full, pat, tail = stack_structure(cfg)
     pos = cache["pos"]
-    x = params["embed"][token.long()]
+    x = F.embedding(token.long(), params["embed"])
     for bi in range(n_full):
         for i, kind in enumerate(pat):
             sn = slot_name(i, kind)

@@ -1208,3 +1208,96 @@ def test_cuda_serve_blur_subcommands_megakernel(cuda_device, cmd):
     rep = S.main(argv)
     assert rep["n_done"] == 4
     assert K.MEGA_LAUNCHES.total() >= 4 and K.LAUNCHES.total() == 0
+
+
+# -- the training half on the card --------------------------------------------
+
+def test_cuda_recurrence_wrappers_raise_under_autograd(cuda_device):
+    """B4/B5 record no gradient: asked to launch while autograd records and
+    an input requires one, their wrappers raise rather than detach; under
+    ``no_grad`` (serving) they launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.rand((2, 8, 16), device=cuda_device, generator=g)
+    b = torch.rand((2, 8, 16), device=cuda_device, generator=g)
+    r, k, v = (torch.rand((1, 8, 2, 16), device=cuda_device, generator=g)
+               for _ in range(3))
+    logw = -torch.rand((1, 8, 2, 16), device=cuda_device, generator=g)
+    u = torch.rand((2, 16), device=cuda_device, generator=g)
+    with pytest.raises(RuntimeError, match="records no gradient"):
+        gops.rglru_scan(a, b.requires_grad_())
+    with pytest.raises(RuntimeError, match="records no gradient"):
+        wops.rwkv6(r, k, v, logw, u.requires_grad_())
+    with torch.no_grad():
+        before = GK.LAUNCHES["rglru"]
+        gops.rglru_scan(a, b)
+        assert GK.LAUNCHES["rglru"] == before + 1
+        wops.rwkv6(r, k, v, logw, u)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b",
+                                  "mixtral-8x22b"])
+def test_cuda_loss_and_gradients_match_the_cpu(cuda_device, arch):
+    """The training route (chunked recurrences, plain attention, MoE) on
+    the card against the same weights on the CPU: the loss within 1e-5,
+    every gradient leaf within 1e-4, every time-mix/RG-LRU projection's
+    gradient nonzero.  B4/B5 are not launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm as LM
+    from repro_torch.models import transformer as TF
+
+    import torch.utils._pytree as pytree
+
+    cfg = get_config(arch).reduced()
+    params = TF.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    batch = {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
+    loss_fn = LM.make_loss_fn(cfg, remat="full", q_chunk=16)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        flat, spec = pytree.tree_flatten(params)
+        leaves = [p.to(dev).requires_grad_() for p in flat]
+        before = (GK.LAUNCHES.total(), WK.LAUNCHES.total())
+        total, _ = loss_fn(pytree.tree_unflatten(leaves, spec), batch)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        assert (GK.LAUNCHES.total(), WK.LAUNCHES.total()) == before
+        out[str(dev)] = (float(total.detach()), [g.cpu() for g in grads])
+    (l_cpu, g_cpu), (l_dev, g_dev) = out["cpu"], out[str(cuda_device)]
+    assert abs(l_cpu - l_dev) <= 1e-5
+    for a, b in zip(g_dev, g_cpu):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    names = [pytree.keystr(path) for path, _ in
+             pytree.tree_flatten_with_path(params)[0]]
+    for name, g in zip(names, g_dev):
+        if any(w in name for w in ("'wr'", "'wk'", "'wx'", "'w_lora_a'")):
+            assert bool((g != 0).any()), name
+
+
+def test_cuda_train_loop_restart_equivalence(cuda_device, tmp_path):
+    """5 straight steps against a run that crashes after step 3's
+    checkpoint and restarts, on cuda:0 (reduced h2o-danube, batch 2, seq
+    32): every state leaf within 1e-5 (the reference test's tolerance)."""
+    from repro_torch.ckpt.store import _flatten
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+
+    cfg = get_config("h2o-danube-3-4b").reduced()
+    kw = dict(steps=5, batch=2, seq=32, quiet=True)
+
+    def crash(step, metrics):
+        if step == 2:
+            raise KeyboardInterrupt
+
+    full, losses = train_loop(cfg, ckpt_base=str(tmp_path / "a" / "ck"),
+                              ckpt_every=100, **kw)
+    with pytest.raises(KeyboardInterrupt):
+        train_loop(cfg, ckpt_base=str(tmp_path / "b" / "ck"), ckpt_every=3,
+                   on_step=crash, **kw)
+    resumed, tail = train_loop(cfg, ckpt_base=str(tmp_path / "b" / "ck"),
+                               ckpt_every=100, **kw)
+    assert np.isfinite(losses).all() and len(tail) == 2
+    for a, b in zip(_flatten(full)[0], _flatten(resumed)[0]):
+        assert a.is_cuda
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -1,10 +1,10 @@
 """The port stands alone: importing every ``repro_torch`` module (among
 them ``core.pool``, ``controller.controller``, ``obs`` with its six
 modules, the megakernel engine's, the cluster fabric, the checkpoint
-store, the surrogate and attention LMs' persistent kernels and the serve
-CLI) and
-``chip_smoke.py``
-brings in neither ``jax`` nor any ``repro.`` module."""
+store, the surrogate and attention LMs' persistent kernels, the serve
+CLI, and the training half: optimizer, compression, data pipeline, MoE,
+loss and train step, the train CLI), ``chip_smoke.py`` and the port's
+examples bring in neither ``jax`` nor any ``repro.`` module."""
 import os
 import subprocess
 import sys
@@ -42,13 +42,22 @@ for name in ("repro_torch.core.pool", "repro_torch.controller.controller",
              # the attention LM's persistent kernels
              "repro_torch.kernels.attn_lm",
              "repro_torch.kernels.attn_lm.kernel",
-             "repro_torch.kernels.attn_lm.ops"):
+             "repro_torch.kernels.attn_lm.ops",
+             # the training half
+             "repro_torch.optim", "repro_torch.optim.adamw",
+             "repro_torch.optim.compression", "repro_torch.data",
+             "repro_torch.data.pipeline", "repro_torch.models.moe",
+             "repro_torch.models.lm", "repro_torch.launch.train"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
 from repro_torch.controller import Controller  # noqa: F401  (lazy export)
 sys.path.insert(0, sys.argv[1])
 import chip_smoke  # noqa: F401  (import only: main() runs under __main__)
+import runpy, glob, os
+for path in sorted(glob.glob(os.path.join(sys.argv[1], "examples",
+                                          "torch_*.py"))):
+    runpy.run_path(path, run_name="not_main")  # import only
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
