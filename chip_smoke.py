@@ -260,7 +260,26 @@ Phases, in order; any failure raises and the script exits non-zero:
     1e-5; and ``examples/torch_multi_tenant_serve.py`` on cuda:0: serving
     requests placed by ``on_chunk`` preempt the training task at least
     once, and its final state must equal an uninterrupted run's (rerun
-    with deterministic algorithms if it does not; at most 1e-6 then).
+    with deterministic algorithms if it does not; at most 1e-6 then);
+14. ``[encdec]``, the encoder-decoder stack and the modality frontends,
+    which launch none of B1-B5 (checked): whisper-tiny at full width and
+    depth in f32 (4 encoder + 4 decoder layers, d_model 384, vocab 51865,
+    seed-0 weights) through ``serve()`` on cuda:0, 4 clips of 1500 frame
+    embeddings, prompts of 4 tokens, 64 greedy tokens; the same weights,
+    frames and prompts replayed on the CPU (prefill logits within 1e-3,
+    streams equal, or where one first differs the CPU's top-two logit gap
+    there below 1e-4); teacher-forced decode after a 1-token prefill
+    against ``forward`` within 2e-2 with ``cache["enc"]`` bitwise
+    unchanged; encode, prefill and decode times, decode tokens/s, peak
+    memory and one traced decode step (device time by kernel, busy
+    share).  Then 8 train steps (remat "full") at batch 8 x 64 text tokens
+    with 1500 frames: every loss finite, the last below the first, every
+    leaf with a nonzero finite first-step gradient; step time (median of
+    steps 2-8), peak memory.  Then llava-next-34b at full width with 8 of
+    its 60 layers (all 60 do not fit one card in f32): batch 2 x (576
+    patch embeddings + 64 text tokens), 16 greedy tokens, cache ``pos``
+    640, teacher-forced decode against ``forward``; prefill seconds,
+    decode tokens/s, peak memory.
 
 The last three lines of standard output are the kernel JSON record, the
 card line, and ``{"ok": true, "device": {...}}``.  The script imports
@@ -441,6 +460,14 @@ SERVE_LM = {"batch": 4, "prompt_len": 128, "gen": 32, "seed": 0}
 # at d_model 2048 that moved them by 1.4e-4 in a first chip run (the
 # reduced models on the CPU agree with the reference to 4e-6)
 SCAN_TOL, RWKV_TOL, LOGIT_TOL = 1e-5, 1e-4, 1e-3
+# [encdec]: whisper-tiny at full width and depth (4 + 4 layers, 1500 frames
+# of Whisper's 30 s window), and llava-next-34b at full width, 8 of its 60
+# layers (all 60 in f32 would take ~138 GB)
+WHISPER_SERVE = {"batch": 4, "prompt_len": 4, "gen": 64, "seed": 0}
+WHISPER_TRAIN = {"batch": 8, "seq": 64, "steps": 8, "q_chunk": 64}
+LLAVA = {"layers": 8, "batch": 2, "prompt_len": 64, "gen": 16, "seed": 0}
+GAP_TOL = 1e-4       # the CPU's top-two gap where a greedy stream differs
+TEACHER_TOL = 2e-2   # decode against forward: tests/test_arch_smoke.py:127
 # the reference's sweep shapes (tests/test_kernels.py:60, :73), then the
 # edges of the kernels' designs: B4's segments and time tiles (T 2, 17,
 # 129, 2048) and channel stripes (L 100: a channel a thread; 4096: a float4);
@@ -556,12 +583,16 @@ def serve(imgs, slowdown_s: float, tracer=None, metrics=None,
           window: Optional[str] = None, engine: str = "pipelined"):
     """The main path: ``repro_torch.Client(n_regions=2, engine=engine)`` on
     cuda:0, two priority-4 MedianBlur tasks, then — once both have retired
-    a chunk — a priority-0 GaussianBlur.  In megakernel mode a launch runs
-    its chunks without the host, so the arrival is placed at the launches
-    instead: each background task's worker waits just before its launch
-    until both have got there, the urgent task is submitted, and the
-    scheduler has asked a region to yield (its flag reads nonzero); the
-    victim's launch then exits on the flag at its first chunk boundary.
+    a chunk — a priority-0 GaussianBlur.  Each background task's worker
+    waits at its first chunk boundary until both have got there, the
+    urgent task is submitted, and the scheduler has asked a region to
+    yield, so the victim honours the request with most of its chunks still
+    to run (left to the host's timing, a late arrival can find the victim
+    at its last chunk, and the request goes stale).  In megakernel mode a
+    launch runs its chunks without the host, so the wait is placed just
+    before the launches instead, and the request is read back from the
+    flag on the card; the victim's launch then exits on the flag at its
+    first chunk boundary.
     The launch and row-block counters are zeroed just before and read just
     after.  With ``metrics``, a ``TelemetryMonitor`` attached to the
     scheduler samples every ``MONITOR_INTERVAL_S`` while the tasks run.
@@ -579,19 +610,25 @@ def serve(imgs, slowdown_s: float, tracer=None, metrics=None,
     tasks = [_blur_task("MedianBlur", imgs[i], BG_ITERS, 4) for i in (0, 1)]
     urgent = _blur_task("GaussianBlur", imgs[2], URGENT_ITERS, 0)
     started, both_started = set(), threading.Event()
-    release = threading.Event()  # megakernel: the launches may go
+    release = threading.Event()  # the background tasks may go on
     lock = threading.Lock()
 
-    def on_chunk(region, t):
+    def arrive(t):
         with lock:
             started.add(t.tid)
             if all(b.tid in started for b in tasks):
                 both_started.set()
 
+    def on_chunk(region, t):
+        arrive(t)
+        if (engine != "megakernel" and not release.is_set()
+                and any(t is b for b in tasks)):
+            release.wait(TIMEOUT_S)
+
     def on_launch(region, t):
         if release.is_set() or all(t is not b for b in tasks):
             return
-        on_chunk(region, t)
+        arrive(t)
         release.wait(TIMEOUT_S)
 
     client = repro_torch.Client(n_regions=2, tracer=tracer, metrics=metrics,
@@ -619,10 +656,13 @@ def serve(imgs, slowdown_s: float, tracer=None, metrics=None,
             if engine == "megakernel":
                 asked = _wait(lambda: any(r.flag.read()
                                           for r in client.shell.regions))
-                release.set()
-                if not asked:
-                    raise AssertionError("the urgent task asked no region "
-                                         "to yield")
+            else:
+                asked = _wait(lambda: any(r.preempt_requested
+                                          for r in client.shell.regions))
+            release.set()
+            if not asked:
+                raise AssertionError("the urgent task asked no region to "
+                                     "yield")
             for h in handles:
                 h.result(timeout=TIMEOUT_S)
             wall_s = time.perf_counter() - t0
@@ -3190,9 +3230,9 @@ def serve_recurrent(arch: str, dev) -> dict:
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params, prompts = S.draw(cfg, batch=SERVE_LM["batch"],
-                             prompt_len=SERVE_LM["prompt_len"],
-                             seed=SERVE_LM["seed"], device=dev)
+    params, prompts, _ = S.draw(cfg, batch=SERVE_LM["batch"],
+                                prompt_len=SERVE_LM["prompt_len"],
+                                seed=SERVE_LM["seed"], device=dev)
     torch.cuda.synchronize()
     draw_s = time.perf_counter() - t0
     n_params = sum(_numel(params))
@@ -4093,6 +4133,380 @@ def train_phase(dev, card: str) -> dict:
     return out
 
 
+# -- [encdec]: the encoder-decoder stack and the modality frontends ----------
+
+def _b_launches() -> dict:
+    """Launches of B1-B5 so far (the [encdec] path must reach none)."""
+    from repro_torch.kernels.blur import kernel as K
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru_scan import kernel as GK
+    from repro_torch.kernels.rwkv6 import kernel as WK
+
+    return {name: mod.LAUNCHES.total() for name, mod in
+            (("B1", K), ("B2", FK), ("B3", DK), ("B4", GK), ("B5", WK))}
+
+
+def _synced(fn):
+    """(fn(), wall seconds) with the card synchronised on both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _greedy_gaps(params, prompts, frontend, cfg, gen: int):
+    """``generate``'s greedy loop that also keeps, at every step, the gap
+    between the two largest logits.  Returns (tokens [B, gen], gaps [B,
+    gen], the prefill's last logits), as numpy."""
+    import torch
+
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.lm import make_prefill_step
+
+    prefill = make_prefill_step(cfg, q_chunk=min(64, prompts.shape[1]))
+    cache, last = prefill(params, {"tokens": prompts, "frontend": frontend})
+    logits, toks, gaps = last[:, :cfg.vocab_size].float(), [], []
+    for step in range(gen):
+        if step:
+            lg, cache = TF.decode_step(params, cache, toks[-1], cfg)
+            logits = lg[:, 0, :cfg.vocab_size].float()
+        top2 = torch.topk(logits, 2, dim=-1).values
+        gaps.append((top2[:, 0] - top2[:, 1]).cpu())
+        toks.append(torch.argmax(logits, -1).to(torch.int32)[:, None])
+    return (torch.cat(toks, 1).cpu().numpy(), torch.stack(gaps, 1).numpy(),
+            last.cpu())
+
+
+def _teacher_forced(params, text, frontend, cfg, q_chunk: int = 64) -> dict:
+    """Prefill ``text[:, :1]`` with the frontend input, then decode the
+    rest of ``text`` token by token into a cache long enough to hold it
+    all, against ``forward``'s logits over the whole text.  Returns the
+    largest difference, forward's largest logit, and whether the
+    cross-attention cache (where there is one) came through the decode
+    steps bitwise unchanged."""
+    import torch
+
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.lm import make_prefill_step
+
+    B, n = text.shape
+    logits, _, _ = TF.forward(params, text, cfg, frontend_embeds=frontend,
+                              q_chunk=q_chunk)
+    pre, _ = make_prefill_step(cfg, q_chunk=q_chunk)(
+        params, {"tokens": text[:, :1], "frontend": frontend})
+    T0 = pre["pos"]
+    cache = TF.init_cache(cfg, B, T0 + n - 1, device=text.device)
+    for sn, c in pre["blocks"].items():
+        for k, v in c.items():
+            cache["blocks"][sn][k][:, :, :T0] = v
+    enc = pre.get("enc")
+    if enc is not None:
+        cache["enc"] = enc
+        enc_before = {k: v.clone() for k, v in enc.items()}
+    cache["pos"] = T0
+    err = 0.0
+    for t in range(1, n):
+        lg, cache = TF.decode_step(params, cache, text[:, t:t + 1], cfg)
+        err = max(err, float((lg[:, 0] - logits[:, T0 - 1 + t]).abs().max()))
+    same = None if enc is None else all(
+        torch.equal(cache["enc"][k], v) for k, v in enc_before.items())
+    return {"max_abs_err": err, "max_logit": float(logits.abs().max()),
+            "positions": n - 1, "prefill_pos": T0, "enc_unchanged": same}
+
+
+def _traced_decode(params, prompts, frontend, cfg, tag: str) -> dict:
+    """Decode steps after a prefill and a warm step, traced by
+    ``torch.profiler``: one with the card's activity only (device time by
+    kernel), one with the host's too (the card's busy share in the step's
+    window)."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models.lm import make_decode_step, make_prefill_step
+
+    prefill = make_prefill_step(cfg, q_chunk=min(64, prompts.shape[1]))
+    decode = make_decode_step(cfg)
+    cache, last = prefill(params, {"tokens": prompts, "frontend": frontend})
+    tok = torch.argmax(last[:, :cfg.vocab_size], -1).to(torch.int32)[:, None]
+    tok, cache = decode(params, cache, tok)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tok, cache = decode(params, cache, tok)
+        torch.cuda.synchronize()
+    by_kernel = _by_kernel(prof)
+    _log_by_kernel(tag, by_kernel)
+    with tempfile.TemporaryDirectory() as tmp:
+        prof_json = os.path.join(tmp, "profile.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("decode_window"):
+                decode(params, cache, tok)
+                torch.cuda.synchronize()
+        prof.export_chrome_trace(prof_json)
+        share = _busy_share(prof_json, "decode_window")
+    log(f"[{tag}] the card busy {share['busy_ms']:.3f} ms of the "
+        f"{share['window_ms']:.3f} ms window (host and card traced), busy "
+        f"share {share['busy_share']:.4f}; {share['kernel_n']} kernels")
+    return {"device_ms": sum(ms for ms, _ in by_kernel.values()),
+            "kernels": sum(n for _, n in by_kernel.values()),
+            **{k: share[k] for k in ("busy_ms", "window_ms", "busy_share")}}
+
+
+def _whisper_serve(dev, card: str) -> dict:
+    """whisper-tiny served through ``serve()`` on cuda:0, replayed on the
+    CPU, decoded teacher-forced, one decode step traced."""
+    import numpy as np
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+    from repro_torch.models import transformer as TF
+
+    cfg, sv = get_config("whisper-tiny"), WHISPER_SERVE
+    toks = S.serve(cfg, **sv)               # cuda:0, the entry point
+    if toks.shape != (sv["batch"], sv["gen"]) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"[encdec] whisper: bad tokens {toks.shape}")
+    (params, prompts, frames), draw_s = _synced(lambda: S.draw(
+        cfg, batch=sv["batch"], prompt_len=sv["prompt_len"], seed=sv["seed"],
+        device=dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = S.generate(params, prompts, cfg, gen=sv["gen"], frontend=frames)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    _, encode_s = _synced(lambda: TF.encode(
+        params, frames, cfg, q_chunk=min(64, sv["prompt_len"])))
+    if not np.array_equal(run["tokens"], toks):
+        raise AssertionError("[encdec] whisper: generate's tokens differ "
+                             "from serve()'s on the same draws")
+
+    # the same weights, frames and prompts on the CPU
+    cpu = pytree.tree_map(lambda t: t.cpu(), params)
+    (cpu_toks, gaps, cpu_last), cpu_s = _synced(lambda: _greedy_gaps(
+        cpu, prompts.cpu(), frames.cpu(), cfg, sv["gen"]))
+    logit_err = float((run["logits"].cpu() - cpu_last).abs().max())
+    first_diff = []
+    for b in range(sv["batch"]):
+        off = np.flatnonzero(cpu_toks[b] != toks[b])
+        if off.size:
+            first_diff.append({"row": b, "step": int(off[0]),
+                               "cpu_gap": float(gaps[b, off[0]])})
+    log(f"[encdec] whisper card vs CPU ({cpu_s:.3f} s on the CPU): prefill "
+        f"logits max_abs_err {logit_err:.3e} (tolerance {LOGIT_TOL:g}); "
+        f"greedy streams {'equal' if not first_diff else first_diff}")
+    if not logit_err <= LOGIT_TOL:
+        raise AssertionError(f"[encdec] whisper: prefill logits differ "
+                             f"from the CPU's by {logit_err}")
+    if any(not d["cpu_gap"] < GAP_TOL for d in first_diff):
+        raise AssertionError(f"[encdec] whisper: a greedy stream differs "
+                             f"from the CPU's at a clear step: "
+                             f"{first_diff}")
+
+    text = torch.cat([prompts, torch.as_tensor(toks, device=dev)], 1)
+    teacher = _teacher_forced(params, text, frames, cfg)
+    log(f"[encdec] whisper teacher-forced decode of {teacher['positions']} "
+        f"positions after a 1-token prefill: max_abs_err vs forward "
+        f"{teacher['max_abs_err']:.3e} (tolerance {TEACHER_TOL:g}; max "
+        f"|logit| {teacher['max_logit']:.3f}); cache['enc'] unchanged "
+        f"bitwise: {teacher['enc_unchanged']}")
+    if not teacher["max_abs_err"] <= TEACHER_TOL:
+        raise AssertionError(f"[encdec] whisper: decode differs from "
+                             f"forward by {teacher['max_abs_err']}")
+    if teacher["enc_unchanged"] is not True:
+        raise AssertionError("[encdec] whisper: decode changed cache['enc']")
+    traced = _traced_decode(params, prompts, frames, cfg,
+                            "encdec whisper, traced decode step")
+    n_dec = sv["batch"] * (sv["gen"] - 1)
+    out = {"params": sum(_numel(params)), "draw_s": draw_s,
+           "encode_s": encode_s, "prefill_s": run["prefill_s"],
+           "decode_s": run["decode_s"],
+           "decode_tokens_per_s": n_dec / run["decode_s"],
+           "peak_gb": peak_gb, "prefill_logit_err_vs_cpu": logit_err,
+           "streams_first_diff": first_diff,
+           "teacher_forced_err": teacher["max_abs_err"],
+           "traced_decode_step": traced}
+    log(f"[encdec] whisper-tiny f32 ({out['params'] / 1e6:.3f} M params, "
+        f"batch {sv['batch']} x {cfg.encoder_seq} frames, prompt "
+        f"{sv['prompt_len']}, {sv['gen']} greedy tokens): encode "
+        f"{encode_s:.4f} s, prefill (encode included) "
+        f"{run['prefill_s']:.4f} s, decode {out['decode_tokens_per_s']:.3f} "
+        f"tokens/s ({run['decode_s']:.4f} s for {sv['gen'] - 1} steps), "
+        f"peak {peak_gb:.3f} GB; card {card}")
+    return out
+
+
+def _whisper_train(dev, card: str) -> dict:
+    """whisper-tiny trained 8 steps at batch 8 x 64 text tokens with 1500
+    frames: a falling finite loss and a nonzero, finite first-step
+    gradient on every leaf."""
+    import statistics
+
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models import lm as LM
+    from repro_torch.optim import AdamWConfig
+
+    cfg, tr = get_config("whisper-tiny"), WHISPER_TRAIN
+    opt = AdamWConfig(warmup_steps=1, total_steps=tr["steps"])
+    state = LM.init_train_state(
+        cfg, opt, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev, param_dtype=torch.float32)
+    step = LM.make_train_step(cfg, opt, remat="full", q_chunk=tr["q_chunk"])
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=tr["seq"],
+                                      global_batch=tr["batch"]))
+    frames = torch.randn((tr["batch"], cfg.encoder_seq, cfg.d_model),
+                         generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    first = {}
+    update = LM.adamw_update
+
+    def watching(grads, *args, **kw):
+        if not first:
+            for path, g in pytree.tree_flatten_with_path(grads)[0]:
+                first[pytree.keystr(path)] = (bool((g != 0).any()),
+                                              bool(torch.isfinite(g).all()))
+        return update(grads, *args, **kw)
+
+    losses, step_s = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    LM.adamw_update = watching
+    try:
+        for s in range(tr["steps"]):
+            batch = dict(data.batch(s), frontend=frames)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t0)
+    finally:
+        LM.adamw_update = update
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    bad = sorted(k for k, (nonzero, finite) in first.items()
+                 if not (nonzero and finite))
+    learned = [k for k in first if k.startswith(
+        ("['frontend_proj']", "['encoder']", "['enc_norm']"))
+        or "['normx']" in k or "['xattn']" in k]
+    med = statistics.median(step_s[1:])
+    tokens = tr["batch"] * tr["seq"]
+    log(f"[encdec] whisper train ({tr['batch']} x {tr['seq']} tokens, "
+        f"{cfg.encoder_seq} frames, remat full, q_chunk {tr['q_chunk']}): "
+        f"losses {[round(v, 4) for v in losses]}; step "
+        f"{med * 1e3:.3f} ms (median of steps 2-{tr['steps']}), "
+        f"{tokens / med:.1f} text tokens/s, peak {peak_gb:.3f} GB; "
+        f"{len(first) - len(bad)} of {len(first)} leaves with a nonzero "
+        f"finite first-step gradient ({len(learned)} of them the frontend, "
+        f"encoder and cross-attention); card {card}")
+    if bad:
+        raise AssertionError(f"[encdec] whisper: leaves without a nonzero "
+                             f"finite first-step gradient: {bad}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[encdec] whisper: the loss did not fall: "
+                             f"{losses}")
+    del state
+    return {"step_s_median": med, "step_s": step_s,
+            "text_tokens_per_s": tokens / med, "peak_gb": peak_gb,
+            "losses": losses, "leaves": len(first),
+            "encoder_side_leaves": len(learned)}
+
+
+def _llava_serve(dev, card: str) -> dict:
+    """llava-next-34b at full width with 8 of its 60 layers: 576 patch
+    embeddings and 64 text tokens a request, 16 greedy tokens."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+    from repro_torch.models.lm import make_prefill_step
+
+    lv = LLAVA
+    cfg = dataclasses.replace(get_config("llava-next-34b"),
+                              n_layers=lv["layers"])
+    kw = {k: lv[k] for k in ("batch", "prompt_len", "gen", "seed")}
+    toks = S.serve(cfg, **kw)               # cuda:0, the entry point
+    torch.cuda.empty_cache()
+    (params, prompts, patches), draw_s = _synced(lambda: S.draw(
+        cfg, batch=lv["batch"], prompt_len=lv["prompt_len"], seed=lv["seed"],
+        device=dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = S.generate(params, prompts, cfg, gen=lv["gen"], frontend=patches)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not np.array_equal(run["tokens"], toks) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError("[encdec] llava: generate's tokens differ from "
+                             "serve()'s, or leave the vocabulary")
+    cache, _ = make_prefill_step(cfg, q_chunk=64)(
+        params, {"tokens": prompts, "frontend": patches})
+    want_pos = cfg.n_frontend_tokens + lv["prompt_len"]
+    if cache["pos"] != want_pos:
+        raise AssertionError(f"[encdec] llava: cache pos {cache['pos']} != "
+                             f"{want_pos}")
+    del cache
+    text = torch.cat([prompts, torch.as_tensor(toks, device=dev)], 1)
+    teacher = _teacher_forced(params, text, patches, cfg)
+    n_params = sum(_numel(params))
+    n_dec = lv["batch"] * (lv["gen"] - 1)
+    out = {"layers": lv["layers"], "params": n_params, "draw_s": draw_s,
+           "prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+           "decode_tokens_per_s": n_dec / run["decode_s"],
+           "peak_gb": peak_gb, "cache_pos": want_pos,
+           "teacher_forced_err": teacher["max_abs_err"]}
+    log(f"[encdec] llava-next-34b f32, {lv['layers']} of 60 layers "
+        f"({n_params / 1e9:.3f} B params drawn in {draw_s:.3f} s), batch "
+        f"{lv['batch']} x ({cfg.n_frontend_tokens} patches + "
+        f"{lv['prompt_len']} tokens), {lv['gen']} greedy tokens: prefill "
+        f"{run['prefill_s']:.4f} s, decode {out['decode_tokens_per_s']:.3f} "
+        f"tokens/s ({run['decode_s']:.4f} s for {lv['gen'] - 1} steps), "
+        f"peak {peak_gb:.3f} GB; cache pos {want_pos}; teacher-forced "
+        f"decode of {teacher['positions']} positions: max_abs_err "
+        f"{teacher['max_abs_err']:.3e} (tolerance {TEACHER_TOL:g}; max "
+        f"|logit| {teacher['max_logit']:.3f}); card {card}")
+    if not teacher["max_abs_err"] <= TEACHER_TOL:
+        raise AssertionError(f"[encdec] llava: decode differs from forward "
+                             f"by {teacher['max_abs_err']}")
+    out["traced_decode_step"] = _traced_decode(
+        params, prompts, patches, cfg, "encdec llava, traced decode step")
+    del params, prompts, patches, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_phase(dev, card: str) -> dict:
+    """[encdec]: whisper-tiny served and trained at full width and depth,
+    llava-next-34b served at full width with 8 of 60 layers; the path
+    reaches none of B1-B5."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = _b_launches()
+    out = {"whisper_serve": _whisper_serve(dev, card)}
+    gc.collect()
+    out["whisper_train"] = _whisper_train(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["llava"] = _llava_serve(dev, card)
+    if _b_launches() != before:
+        raise AssertionError(f"[encdec] the path launched a B kernel: "
+                             f"{before} -> {_b_launches()}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4101,6 +4515,7 @@ def main() -> int:
               "runs on an NVIDIA GPU", file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     import numpy as np
     import torch.nn.functional as F
 
@@ -4349,7 +4764,12 @@ def main() -> int:
     trained = train_phase(dev, card)
     log(f"[train] {json.dumps(trained)}")
     log(f"[train] {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    encdec = encdec_phase(dev, card)
+    log(f"[encdec] {json.dumps(encdec)}")
+    log(f"[encdec] {time.perf_counter() - t0:.3f} s")
 
+    log(f"[smoke] {time.perf_counter() - t_start:.3f} s in all")
     log(json.dumps({"kernels": records}))
     log(card)
     log(json.dumps({"ok": True, "device": {

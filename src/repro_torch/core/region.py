@@ -337,6 +337,11 @@ class Region:
         """Eligible for new work: alive and not draining/retired."""
         return self.alive and self.state is RegionState.ACTIVE
 
+    @property
+    def preempt_requested(self) -> bool:
+        """A preempt request waits for the running task to honour it."""
+        return self._preempt.is_set()
+
     # ------------------------------------------------------------------
     def _run(self):
         while not self._stop.is_set():

@@ -71,14 +71,23 @@ def _sync(device: torch.device):
 
 def draw(cfg: ModelConfig, *, batch: int, prompt_len: int, seed: int,
          device) -> tuple:
-    """The seeded weights and prompts ``serve`` uses: the parameters, then
-    ``[batch, prompt_len]`` prompt tokens, from one generator on
-    ``device``.  The same arguments give the same draws."""
+    """The seeded weights and inputs ``serve`` uses, from one generator on
+    ``device``: the parameters, ``[batch, prompt_len]`` prompt tokens, then
+    the frontend input, standard normal (``[batch, n_frontend_tokens, D]``
+    patch embeddings for vision, ``[batch, encoder_seq, D]`` frames for
+    audio; ``None`` without a frontend).  The same arguments give the same
+    draws."""
     g = torch.Generator(device=device).manual_seed(seed)
     params = TF.init_params(cfg, generator=g, device=device)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=g, device=device)
-    return params, prompts
+    frontend = None
+    if cfg.frontend is not None:
+        n = (cfg.n_frontend_tokens if cfg.frontend == "vision"
+             else cfg.encoder_seq)
+        frontend = torch.randn((batch, n, cfg.d_model), generator=g,
+                               device=device)
+    return params, prompts, frontend
 
 
 def _make_tracer(trace_out):
@@ -179,19 +188,23 @@ def _devices(device):
 
 
 def generate(params, prompts: torch.Tensor, cfg: ModelConfig, *,
-             gen: int, tracer=None) -> dict:
+             gen: int, frontend: torch.Tensor = None, tracer=None) -> dict:
     """Prefill ``prompts`` [B, T] (query chunks of ``min(64, T)``, as the
-    reference's ``serve``), then ``gen - 1`` greedy decode steps.
-    Returns ``tokens`` (numpy int32 [B, gen]), the prefill's last-position
-    ``logits`` [B, V], and the prefill and decode wall seconds (each read
-    back to the host, as the reference's loop does).  A ``tracer`` gets a
-    ``prefill`` span and a ``decode_step`` span a step."""
+    reference's ``serve``, the encoder's too) with the ``frontend`` input,
+    if any, then ``gen - 1`` greedy decode steps.  Returns ``tokens``
+    (numpy int32 [B, gen]), the prefill's last-position ``logits`` [B, V],
+    and the prefill and decode wall seconds (each read back to the host,
+    as the reference's loop does).  A ``tracer`` gets a ``prefill`` span
+    and a ``decode_step`` span a step."""
     device = prompts.device
     prefill = make_prefill_step(cfg, q_chunk=min(64, prompts.shape[1]))
     decode = make_decode_step(cfg)
+    batch = {"tokens": prompts}
+    if frontend is not None:
+        batch["frontend"] = frontend
     _sync(device)
     t0 = time.perf_counter()
-    cache, last = prefill(params, {"tokens": prompts})
+    cache, last = prefill(params, batch)
     tok = torch.argmax(last[:, :cfg.vocab_size], -1).to(torch.int32)[:, None]
     out = [tok.cpu()]
     prefill_s = time.perf_counter() - t0
@@ -213,23 +226,20 @@ def generate(params, prompts: torch.Tensor, cfg: ModelConfig, *,
 
 def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
           gen: int = 16, seed: int = 0, device=None,
-          prompts=None, quiet: bool = False,
+          prompts=None, frontend=None, quiet: bool = False,
           trace_out: str = None) -> np.ndarray:
-    """Serve one batch: seeded weights (and prompts, unless ``prompts``
-    [batch, prompt_len] are given), prefill, greedy decode.  Returns the
-    tokens, numpy int32 [batch, gen]."""
+    """Serve one batch: seeded weights (and prompts and frontend input,
+    unless ``prompts`` [batch, prompt_len] or ``frontend`` of ``draw``'s
+    shape are given), prefill, greedy decode.  Returns the tokens, numpy
+    int32 [batch, gen]."""
     tracer = _make_tracer(trace_out)
     device = resolve_devices(None if device is None else [device])[0]
-    params, drawn = draw(cfg, batch=batch, prompt_len=prompt_len, seed=seed,
-                         device=device)
-    if prompts is not None:
-        prompts = torch.as_tensor(np.asarray(prompts), device=device)
-        if tuple(prompts.shape) != (batch, prompt_len):
-            raise ValueError(f"prompts {tuple(prompts.shape)} != (batch, "
-                             f"prompt_len) = {(batch, prompt_len)}")
-    else:
-        prompts = drawn
-    run = generate(params, prompts, cfg, gen=gen, tracer=tracer)
+    params, prompts_drawn, frontend_drawn = draw(
+        cfg, batch=batch, prompt_len=prompt_len, seed=seed, device=device)
+    prompts = _given(prompts, prompts_drawn, "prompts", device)
+    frontend = _given(frontend, frontend_drawn, "frontend", device)
+    run = generate(params, prompts, cfg, gen=gen, frontend=frontend,
+                   tracer=tracer)
     toks = run["tokens"]
     t_prefill, t_decode = run["prefill_s"], run["decode_s"]
     _write_trace(tracer, trace_out, quiet, "serve")
@@ -239,6 +249,20 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
               f"({batch * gen / max(t_decode, 1e-9):.1f} tok/s)")
         print(f"[serve] sample output ids: {toks[0][:12].tolist()}")
     return toks
+
+
+def _given(value, drawn: torch.Tensor, what: str, device) -> torch.Tensor:
+    """The caller's ``value`` on ``device`` (it must have the drawn
+    input's shape), else the drawn one."""
+    if value is None:
+        return drawn
+    if drawn is None:
+        raise ValueError(f"{what} given to a model that takes none")
+    value = torch.as_tensor(np.asarray(value), device=device)
+    if value.shape != drawn.shape:
+        raise ValueError(f"{what} {tuple(value.shape)} != "
+                         f"{tuple(drawn.shape)}")
+    return value
 
 
 def serve_task_stream(*, n_tasks: int = 16, n_regions: int = 2,

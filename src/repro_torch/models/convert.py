@@ -35,14 +35,15 @@ def _map(tree: PyTree, fn) -> PyTree:
 
 def params_from_reference(tree: PyTree, device) -> PyTree:
     """The reference's ``init_params`` tree (``embed``, ``final_norm``,
-    ``unembed``, ``blocks[slot][name]`` stacked on the leading axis, the
-    ``tail`` list) -> the port's identical tree of tensors on ``device``."""
+    ``unembed``, ``frontend_proj``, ``blocks[slot][name]`` stacked on the
+    leading axis, the ``tail`` list, ``encoder``, ``enc_norm``) -> the
+    port's identical tree of tensors on ``device``."""
     return _map(tree, lambda leaf: _to_tensor(leaf, device))
 
 
 def cache_from_reference(tree: PyTree, device) -> PyTree:
-    """A reference decode cache -> the port's: the same tree of tensors,
-    with ``pos`` as a host int."""
+    """A reference decode cache -> the port's: the same tree of tensors
+    (an encoder-decoder's ``enc`` included), with ``pos`` as a host int."""
     out = {k: v for k, v in tree.items() if k != "pos"}
     out = params_from_reference(out, device)
     out["pos"] = int(np.asarray(tree["pos"]))

@@ -67,10 +67,13 @@ def _on(batch: dict, device) -> dict:
 
 def make_loss_fn(cfg: ModelConfig, remat: str = "full",
                  q_chunk: int = 1024):
-    """loss_fn(params, batch) -> (total, {"loss", "aux", "n_tokens"})."""
+    """loss_fn(params, batch) -> (total, {"loss", "aux", "n_tokens"}).
+    The batch holds ``tokens``, ``labels`` and, for a model with a
+    frontend, ``frontend``."""
     def loss_fn(params, batch):
         batch = _on(batch, params["embed"].device)
         logits, _, aux = TF.forward(params, batch["tokens"], cfg,
+                                    frontend_embeds=batch.get("frontend"),
                                     remat=remat, q_chunk=q_chunk,
                                     chunked=True)
         # frontend tokens prepended: their positions carry no labels
@@ -152,9 +155,12 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, remat: str = "full",
 
 
 def make_prefill_step(cfg: ModelConfig, q_chunk: int = 1024):
-    """prefill(params, batch) -> (cache, last_logits [B,V])."""
+    """prefill(params, batch) -> (cache, last_logits [B,V]); the batch's
+    ``frontend`` (patch embeddings or audio frames), where it has one,
+    goes to ``forward``."""
     def prefill(params, batch):
         logits, cache, _ = TF.forward(params, batch["tokens"], cfg,
+                                      frontend_embeds=batch.get("frontend"),
                                       want_cache=True, q_chunk=q_chunk,
                                       last_only=True)
         return cache, logits[:, -1, :]

@@ -1,5 +1,6 @@
-"""Decoder stack: block init/apply for the layer kinds the port serves, with
-decode caches: the port of the reference's ``repro/models/transformer.py``.
+"""Decoder stack: block init/apply for every layer kind, with decode caches
+and the encoder-decoder (whisper) stack: the port of the reference's
+``repro/models/transformer.py``.
 
 Layer kinds: "attn" | "attn_swa" | "attn_local" | "rglru" | "rwkv".  The
 stack is grouped into repeating pattern blocks (``cfg.block_pattern``), and
@@ -10,9 +11,14 @@ run on the one card (``models/moe.py``); the reference's ``mesh`` has no
 meaning there and is not carried over.  ``forward``'s ``remat`` is the
 reference's activation checkpointing, through ``torch.utils.checkpoint``;
 its ``chunked`` sends the recurrences down their differentiable training
-route instead of the B4/B5 kernels.  The encoder-decoder stack and the
-modality frontends come with a later slice of the port and raise
-``NotImplementedError``.
+route instead of the B4/B5 kernels.
+
+The modality frontends are the reference's stubs: precomputed embeddings
+through one ``frontend_proj`` matmul, prepended to the text (vision) or
+fed to the encoder (audio).  The encoder is a stack of non-causal ``attn``
+blocks; every decoder attention block then cross-attends to its output
+(``normx``, ``xattn``: no RoPE, no qk norms), and decode reads the
+cross K/V precomputed at prefill (``cache["enc"]``).
 
 The reference's ``_grad_transparent_barrier`` (an XLA scheduling barrier
 that differentiates as identity) has no counterpart: eager PyTorch has no
@@ -56,18 +62,6 @@ def stack_structure(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...],
 
 def slot_name(i: int, kind: str) -> str:
     return f"b{i}_{kind}"
-
-
-def check_supported(cfg: ModelConfig):
-    """Raise for the parts of the reference's stack not ported yet."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder stack comes with a later slice "
-            f"of the port")
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend comes with a later "
-            f"slice of the port")
 
 
 def _index(tree: PyTree, i: int) -> PyTree:
@@ -172,6 +166,10 @@ class _Init:
         p["ffn"] = self.ffn(cfg, n)
         return p
 
+    def cross_extra(self, cfg: ModelConfig, n=None) -> dict:
+        return {"normx": self.zeros((cfg.d_model,), n),
+                "xattn": self.attn(cfg, n, cross=True)}
+
 
 def init_ffn(cfg: ModelConfig, *, generator: Optional[torch.Generator],
              device, dtype=torch.float32, n: Optional[int] = None) -> dict:
@@ -193,14 +191,24 @@ def init_block(cfg: ModelConfig, kind: str, *,
     return _Init(generator, device, dtype).block(cfg, kind, n)
 
 
+def init_cross_block_extra(cfg: ModelConfig, *,
+                           generator: Optional[torch.Generator], device,
+                           dtype=torch.float32,
+                           n: Optional[int] = None) -> dict:
+    """The cross-attention sublayer added to a decoder block of an
+    encoder-decoder model: ``normx`` and ``xattn`` (no qk norms)."""
+    return _Init(generator, device, dtype).cross_extra(cfg, n)
+
+
 def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator],
                 device, dtype=torch.float32) -> PyTree:
     """The parameter tree of the reference's ``init_params``: ``embed``,
-    ``final_norm``, ``unembed`` (unless tied), ``blocks[slot][name]``
-    stacked on a leading block axis, and the ``tail`` list.  The draws
-    follow the reference's laws but are ``generator``'s, not
-    ``jax.random``'s."""
-    check_supported(cfg)
+    ``final_norm``, ``unembed`` (unless tied), ``frontend_proj`` (with a
+    frontend), ``blocks[slot][name]`` stacked on a leading block axis (an
+    encoder-decoder's attention slots with ``normx``/``xattn``), the
+    ``tail`` list, and ``encoder`` (stacked ``attn`` blocks) with
+    ``enc_norm``.  The draws follow the reference's laws but are
+    ``generator``'s, not ``jax.random``'s."""
     n_full, pat, tail = stack_structure(cfg)
     init = _Init(generator, device, dtype)
     V, D = cfg.padded_vocab, cfg.d_model
@@ -208,10 +216,19 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator],
                     "final_norm": init.zeros((D,))}
     if not cfg.tie_embeddings:
         params["unembed"] = init.normal((D, V), 0.02)
-    params["blocks"] = ({slot_name(i, kind): init.block(cfg, kind, n_full)
-                         for i, kind in enumerate(pat)} if n_full else {})
+    if cfg.frontend is not None:
+        params["frontend_proj"] = init.normal((D, D), 1.0 / math.sqrt(D))
+    blocks = {}
+    for i, kind in enumerate(pat if n_full else ()):
+        blocks[slot_name(i, kind)] = init.block(cfg, kind, n_full)
+        if cfg.is_encdec and kind in ATTN_KINDS:
+            blocks[slot_name(i, kind)].update(init.cross_extra(cfg, n_full))
+    params["blocks"] = blocks
     if tail:
         params["tail"] = [init.block(cfg, kind) for kind in tail]
+    if cfg.is_encdec:
+        params["encoder"] = init.block(cfg, "attn", cfg.encoder_layers)
+        params["enc_norm"] = init.zeros((D,))
     return params
 
 
@@ -292,18 +309,46 @@ def _zero(x) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _cross_kv(enc_out, px, cfg: ModelConfig):
+    """The cross-attention keys and values of ``enc_out`` [B,Te,D]."""
+    B, Te, _ = enc_out.shape
+    KV, hd = cfg.n_kv_heads, cfg.head_dim_
+    return ((enc_out @ px["wk"]).reshape(B, Te, KV, hd),
+            (enc_out @ px["wv"]).reshape(B, Te, KV, hd))
+
+
+def _cross_attend(x, p, cfg: ModelConfig, k, v, q_chunk):
+    """The cross-attention sublayer: queries from the decoder stream ``x``
+    [B,T,D], keys/values [B,Te,KV,hd] from the encoder's output; no RoPE,
+    no mask."""
+    B, T, _ = x.shape
+    H, hd = cfg.n_heads_c, cfg.head_dim_
+    px = p["xattn"]
+    q = (L.rms_norm(x, p["normx"], cfg.norm_eps) @ px["wq"]).reshape(
+        B, T, H, hd)
+    o = L.attention(q, _expand_kv(k, H), _expand_kv(v, H), causal=False,
+                    q_chunk=q_chunk)
+    return x + o.reshape(B, T, H * hd) @ px["wo"]
+
+
 def attn_block_seq(x, p, cfg: ModelConfig, kind: str, positions,
-                   want_cache=False, q_chunk=1024):
-    """Returns (x, cache_or_None, aux_loss)."""
+                   want_cache=False, causal=True, enc_out=None,
+                   q_chunk=1024):
+    """Returns (x, cache_or_None, aux_loss).  ``causal=False``: the
+    encoder's blocks; ``enc_out`` [B,Te,D]: a decoder block of an
+    encoder-decoder model cross-attends to it."""
     window = _attn_window(cfg, kind)
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     q, k, v = _proj_qkv(h, p, cfg, positions)
     o = L.attention(q, _expand_kv(k, cfg.n_heads_c),
-                    _expand_kv(v, cfg.n_heads_c), causal=True, window=window,
-                    q_positions=positions, k_positions=positions,
-                    q_chunk=q_chunk)
+                    _expand_kv(v, cfg.n_heads_c), causal=causal,
+                    window=window, q_positions=positions,
+                    k_positions=positions, q_chunk=q_chunk)
     B, T, H, hd = o.shape
     x = x + o.reshape(B, T, H * hd) @ p["wo"]
+    if enc_out is not None:
+        x = _cross_attend(x, p, cfg, *_cross_kv(enc_out, p["xattn"], cfg),
+                          q_chunk)
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     y, aux = _ffn(h2, p, cfg)
     x = x + y
@@ -349,12 +394,13 @@ def rwkv_block_seq(x, p, cfg: ModelConfig, want_cache=False, state=None,
 
 
 def apply_block_seq(x, p, cfg, kind, positions, want_cache=False,
-                    cache_in=None, q_chunk=1024, chunked=False):
+                    cache_in=None, enc_out=None, q_chunk=1024, chunked=False):
     """Returns (x, cache_or_None, aux_loss).  ``chunked``: the recurrences'
     differentiable training route (``rwkv.py``, ``rglru.py``)."""
     if kind in ATTN_KINDS:
         return attn_block_seq(x, p, cfg, kind, positions,
-                              want_cache=want_cache, q_chunk=q_chunk)
+                              want_cache=want_cache, enc_out=enc_out,
+                              q_chunk=q_chunk)
     if kind == "rglru":
         st = cache_in or {}
         return rglru_block_seq(x, p, cfg, want_cache=want_cache,
@@ -369,10 +415,12 @@ def apply_block_seq(x, p, cfg, kind, positions, want_cache=False,
 # ==========================================================================
 # Block apply — decode (single token, ring caches)
 # ==========================================================================
-def attn_block_decode(x, p, cache, cfg: ModelConfig, kind: str, pos: int):
+def attn_block_decode(x, p, cache, cfg: ModelConfig, kind: str, pos: int,
+                      enc_cache=None):
     """x: [B,1,D]; cache: {"k","v"} ring [B,S,KV,hd], written in place;
-    pos: tokens generated so far (the current token's absolute
-    position)."""
+    pos: tokens generated so far (the current token's absolute position);
+    enc_cache: this block's cross-attention {"k","v"} [B,Te,KV,hd], every
+    key attended."""
     window = _attn_window(cfg, kind)
     B = x.shape[0]
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
@@ -387,14 +435,17 @@ def attn_block_decode(x, p, cache, cfg: ModelConfig, kind: str, pos: int):
                            window=window)
     _, _, H, hd = o.shape
     x = x + o.reshape(B, 1, H * hd) @ p["wo"]
+    if enc_cache is not None:
+        x = _cross_attend(x, p, cfg, enc_cache["k"], enc_cache["v"], 1)
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     y, _ = _ffn(h2, p, cfg)
     return x + y, {"k": kc, "v": vc}
 
 
-def apply_block_decode(x, p, cache, cfg, kind, pos: int):
+def apply_block_decode(x, p, cache, cfg, kind, pos: int, enc_cache=None):
     if kind in ATTN_KINDS:
-        return attn_block_decode(x, p, cache, cfg, kind, pos)
+        return attn_block_decode(x, p, cache, cfg, kind, pos,
+                                 enc_cache=enc_cache)
     if kind == "rglru":
         x, st, _ = rglru_block_seq(x, p, cfg, want_cache=True,
                                    h0=cache["h"], conv_state=cache["conv"])
@@ -411,8 +462,10 @@ def apply_block_decode(x, p, cache, cfg, kind, pos: int):
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device,
                dtype=torch.float32) -> PyTree:
     """Zero decode caches for the whole stack.  seq_len = max context
-    length (ring size is min(seq_len, window) for windowed kinds)."""
-    check_supported(cfg)
+    length (ring size is min(seq_len, window) for windowed kinds).  An
+    encoder-decoder's ``enc`` holds the cross K/V, [encoder_layers, batch,
+    encoder_seq, KV, hd], stacked over the encoder's layers as in the
+    reference (whose prefill stacks them over the decoder's blocks)."""
     n_full, pat, tail = stack_structure(cfg)
     KV, hd = cfg.n_kv_heads, cfg.head_dim_
 
@@ -441,6 +494,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device,
                            for i, kind in enumerate(pat)}
     if tail:
         cache["tail"] = [one(kind) for kind in tail]
+    if cfg.is_encdec:
+        shape = (cfg.encoder_layers, batch, cfg.encoder_seq, KV, hd)
+        cache["enc"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                        "v": torch.zeros(shape, dtype=dtype, device=device)}
     return cache
 
 
@@ -490,12 +547,18 @@ def _group_factor(n: int) -> int:
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            frontend_embeds: Optional[torch.Tensor] = None,
             want_cache: bool = False, remat: str = "none",
             q_chunk: int = 1024, last_only: bool = False,
             chunked: bool = False):
-    """Full-sequence forward.  tokens: [B, T] integer.  Returns (logits
-    [B,T,V] (or [B,1,V] with ``last_only``), cache or None, aux loss):
-    the reference's triple.  The cache's ``pos`` is a host int.
+    """Full-sequence forward.  tokens: [B, T_text] integer;
+    ``frontend_embeds``: [B, Nf, D] patch embeddings (vision: projected
+    and prepended, so T = Nf + T_text) or [B, Te, D] frames (audio: the
+    encoder's input; without them the decoder skips its cross-attention,
+    as the reference's does).  Returns (logits [B,T,V] (or [B,1,V] with
+    ``last_only``), cache or None, aux loss): the reference's triple.  The
+    cache's ``pos`` is a host int; an encoder-decoder's cache holds the
+    cross K/V under ``enc``.
 
     ``remat`` ("none" | "full" | "2level" | "dots") checkpoints each
     block's activations as the reference's ``_remat``: "2level" groups the
@@ -503,15 +566,21 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     checkpoints each group around its checkpointed blocks (more than 3
     blocks; otherwise as "full").  It applies while autograd records and
     no cache is asked for; every mode gives the same loss and gradients.
-    ``chunked`` takes the recurrences' differentiable training route."""
-    check_supported(cfg)
+    ``chunked`` takes the recurrences' differentiable training route.
+    The encoder is not checkpointed, as in the reference."""
     if remat not in ("none", "full", "2level", "dots"):
         raise ValueError(remat)
     n_full, pat, tail = stack_structure(cfg)
-    B, T = tokens.shape
     # F.embedding, not indexing: its backward on the card sums a token's
     # rows in a fixed order (indexing's backward accumulates with atomics)
     x = F.embedding(tokens.long(), params["embed"])
+    enc_out = None
+    if frontend_embeds is not None and cfg.frontend == "vision":
+        fe = _project_frontend(params, frontend_embeds)
+        x = torch.cat([fe.to(x.dtype), x], dim=1)
+    if frontend_embeds is not None and cfg.is_encdec:
+        enc_out = encode(params, frontend_embeds, cfg, q_chunk=q_chunk)
+    B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device).expand(B, T)
     blocks = {sn: _unbind(params["blocks"][sn], n_full)
               for sn in (slot_name(i, kind) for i, kind in enumerate(pat))
@@ -524,7 +593,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             sn = slot_name(i, kind)
             x, c, a = apply_block_seq(x, blocks[sn][bi], cfg, kind,
                                       positions, want_cache=want_cache,
-                                      q_chunk=q_chunk, chunked=chunked)
+                                      enc_out=enc_out, q_chunk=q_chunk,
+                                      chunked=chunked)
             aux = aux + a
             caches[sn] = c
         return x, aux, caches
@@ -555,29 +625,67 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         caches["blocks"] = {sn: _stack(cs) for sn, cs in block_caches.items()}
     for i, kind in enumerate(tail):
         x, c, a = apply_block_seq(x, params["tail"][i], cfg, kind, positions,
-                                  want_cache=want_cache, q_chunk=q_chunk,
-                                  chunked=chunked)
+                                  want_cache=want_cache, enc_out=enc_out,
+                                  q_chunk=q_chunk, chunked=chunked)
         aux_total = aux_total + a
         if want_cache:
             caches.setdefault("tail", []).append(c)
+    if want_cache and enc_out is not None:
+        caches["enc"] = _enc_cross_cache(params, enc_out, cfg)
     if last_only:  # prefill: only the last position's logits are needed
         x = x[:, -1:, :]
     return (_readout(params, x, cfg), (caches if want_cache else None),
             aux_total)
 
 
+def _project_frontend(params, frontend_embeds):
+    """The stub frontend: precomputed embeddings through ``frontend_proj``
+    (in the parameters' dtype)."""
+    proj = params["frontend_proj"]
+    return frontend_embeds.to(proj.dtype) @ proj
+
+
+def encode(params, frames: torch.Tensor, cfg: ModelConfig, *,
+           q_chunk: int = 1024) -> torch.Tensor:
+    """The whisper-style encoder over precomputed frame embeddings
+    [B,Te,D]: ``frontend_proj``, the non-causal ``attn`` blocks with RoPE
+    on positions 0..Te-1, then ``enc_norm``.  Returns [B,Te,D]."""
+    x = _project_frontend(params, frames)
+    B, Te, _ = x.shape
+    positions = torch.arange(Te, device=x.device).expand(B, Te)
+    for p in _unbind(params["encoder"], cfg.encoder_layers):
+        x, _, _ = attn_block_seq(x, p, cfg, "attn", positions, causal=False,
+                                 q_chunk=q_chunk)
+    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _enc_cross_cache(params, enc_out, cfg: ModelConfig) -> dict:
+    """Every decoder block's cross-attention K/V of ``enc_out``, stacked
+    over the decoder's blocks: {"k","v"} [n_full, B, Te, KV, hd]."""
+    n_full = stack_structure(cfg)[0]
+    px = params["blocks"][slot_name(0, "attn")]["xattn"]
+    kv = [_cross_kv(enc_out, _index(px, bi), cfg) for bi in range(n_full)]
+    return {"k": torch.stack([k for k, _ in kv]),
+            "v": torch.stack([v for _, v in kv])}
+
+
 def decode_step(params, cache, token: torch.Tensor, cfg: ModelConfig):
     """One decode step.  token: [B,1] integer.  Returns (logits [B,1,V],
-    cache): the cache is updated in place and returned."""
+    cache): the cache is updated in place and returned.  Block ``i`` of
+    an encoder-decoder cross-attends to ``cache["enc"]``'s slice ``i``,
+    which stays as it is; the tail gets none, as in the reference."""
     n_full, pat, tail = stack_structure(cfg)
     pos = cache["pos"]
+    enc = cache.get("enc")
     x = F.embedding(token.long(), params["embed"])
     for bi in range(n_full):
+        enc_bi = None if enc is None else _index(enc, bi)
         for i, kind in enumerate(pat):
             sn = slot_name(i, kind)
             stacked = cache["blocks"][sn]
             x, c = apply_block_decode(x, _index(params["blocks"][sn], bi),
-                                      _index(stacked, bi), cfg, kind, pos)
+                                      _index(stacked, bi), cfg, kind, pos,
+                                      enc_cache=enc_bi)
             _store(stacked, bi, c)
     for i, kind in enumerate(tail):
         x, cache["tail"][i] = apply_block_decode(

@@ -6,7 +6,7 @@ preempt/resume path through CUDA streams (the elastic pool's grow and
 drain among them, the megakernel engine's flag exits, and a migration
 between two shells of a cluster frontend),
 token serving on the attention LM, and ``serve lm`` on the recurrent
-models.  A CUDA kernel has no CPU mode, so every test here carries the
+models and on the encoder-decoder (reduced whisper-tiny).  A CUDA kernel has no CPU mode, so every test here carries the
 ``cuda`` marker and skips without a card.  This file imports nothing of
 the JAX package, so it runs where JAX is absent:
 
@@ -857,14 +857,43 @@ def test_cuda_serve_lm_reduced_matches_cpu(cuda_device, arch, per_step):
     assert {"rglru": GK.LAUNCHES["rglru"], "rwkv6": WK.LAUNCHES["rwkv6"]} == {
         "rglru": per_step.get("rglru", 0) * gen,
         "rwkv6": per_step.get("rwkv6", 0) * gen}
-    params, _ = S.draw(cfg, batch=batch, prompt_len=T, seed=0,
-                       device=cuda_device)
+    params, _, _ = S.draw(cfg, batch=batch, prompt_len=T, seed=0,
+                          device=cuda_device)
     with gops.plain_versions():
         plain = S.generate(params, torch.tensor(prompts, device=cuda_device),
                            cfg, gen=gen)
     np.testing.assert_array_equal(toks, plain["tokens"])
     cpu = S.generate(_to_cpu(params), torch.tensor(prompts), cfg, gen=gen)
     np.testing.assert_array_equal(toks, cpu["tokens"])
+
+
+def test_cuda_serve_whisper_reduced_matches_cpu(cuda_device):
+    """``serve lm --arch whisper-tiny --reduced`` on cuda:0 (the encoder,
+    the cross-attention, the ``enc`` cache): the same tokens as the CPU
+    run on the same weights, frames and prompts, and prefill logits
+    within 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper-tiny").reduced()
+    gen, batch, T = 6, 2, 8
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab_size,
+                                                (batch, T)).astype(np.int32)
+    frames = np.random.default_rng(6).standard_normal(
+        (batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    toks = S.serve(cfg, batch=batch, prompt_len=T, gen=gen, prompts=prompts,
+                   frontend=frames, quiet=True)
+    params, _, _ = S.draw(cfg, batch=batch, prompt_len=T, seed=0,
+                          device=cuda_device)
+    card = S.generate(params, torch.tensor(prompts, device=cuda_device), cfg,
+                      gen=gen, frontend=torch.tensor(frames,
+                                                     device=cuda_device))
+    cpu = S.generate(_to_cpu(params), torch.tensor(prompts), cfg, gen=gen,
+                     frontend=torch.tensor(frames))
+    np.testing.assert_array_equal(toks, card["tokens"])
+    np.testing.assert_array_equal(toks, cpu["tokens"])
+    torch.testing.assert_close(card["logits"].cpu(), cpu["logits"], rtol=0,
+                               atol=1e-4)
 
 
 def _to_cpu(tree):

@@ -172,7 +172,7 @@ def test_serve_entry_point_returns_reference_tokens(capsys):
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split()[:2] for ln in lines] == [["[serve]", "prefill"],
                                                 ["[serve]", "sample"]]
-    params, _ = S.draw(cfg, batch=B, prompt_len=24, seed=5, device="cpu")
+    params, _, _ = S.draw(cfg, batch=B, prompt_len=24, seed=5, device="cpu")
     jparams = jax.tree.map(jnp.asarray, _numpy(params))
     want, _, _ = _ref_generate(rcfg, jparams, prompts,
                                jax.jit(RLM.make_decode_step(rcfg)), gen=6)
@@ -182,9 +182,9 @@ def test_serve_entry_point_returns_reference_tokens(capsys):
 
 def test_draws_are_seeded_and_stacked():
     _, cfg = _configs("recurrentgemma-tail")
-    p1, t1 = S.draw(cfg, batch=2, prompt_len=5, seed=11, device="cpu")
-    p2, t2 = S.draw(cfg, batch=2, prompt_len=5, seed=11, device="cpu")
-    assert torch.equal(t1, t2)
+    p1, t1, f1 = S.draw(cfg, batch=2, prompt_len=5, seed=11, device="cpu")
+    p2, t2, _ = S.draw(cfg, batch=2, prompt_len=5, seed=11, device="cpu")
+    assert torch.equal(t1, t2) and f1 is None  # no frontend
     assert torch.equal(p1["blocks"]["b0_rglru"]["wx"],
                        p2["blocks"]["b0_rglru"]["wx"])
     n_full = cfg.n_layers // len(cfg.block_pattern)
@@ -232,22 +232,19 @@ def test_serve_lm_cli_runs_on_the_cpu(capsys):
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "whisper-tiny",
                                   "llava-next-34b"])
 def test_unported_families_raise(arch):
-    """The encoder-decoder stack and the frontends raise until their
-    slice; the MoE family, refused until the training slice ported
-    ``models/moe.py``, now draws and serves."""
+    """The families the port once refused (MoE until the training slice,
+    the encoder-decoder stack and the frontends until theirs) now draw
+    and serve on the CPU: tokens of the batch's shape, in the vocabulary;
+    the frontend input is drawn with the prompts."""
     cfg = get_config(arch).reduced()
     g = torch.Generator().manual_seed(0)
-    if cfg.moe is not None:
-        TF.init_params(cfg, generator=g, device="cpu")
-        toks = S.serve(cfg, batch=1, prompt_len=4, gen=2, device="cpu",
-                       quiet=True)
-        assert toks.shape == (1, 2)
-        assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
-        return
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TF.init_params(cfg, generator=g, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        S.serve(cfg, batch=1, prompt_len=4, gen=2, device="cpu")
+    TF.init_params(cfg, generator=g, device="cpu")
+    _, _, frontend = S.draw(cfg, batch=1, prompt_len=4, seed=0, device="cpu")
+    assert (frontend is None) == (cfg.frontend is None)
+    toks = S.serve(cfg, batch=1, prompt_len=4, gen=2, device="cpu",
+                   quiet=True)
+    assert toks.shape == (1, 2)
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
 
 
 # -- layer functions ------------------------------------------------------------
