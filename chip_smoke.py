@@ -279,7 +279,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     its 60 layers (all 60 do not fit one card in f32): batch 2 x (576
     patch embeddings + 64 text tokens), 16 greedy tokens, cache ``pos``
     640, teacher-forced decode against ``forward``; prefill seconds,
-    decode tokens/s, peak memory.
+    decode tokens/s, peak memory;
+15. ``[pod]``, the placement half of the pod tooling, which launches none
+    of B1-B5 (checked): ``input_specs`` and the input and output
+    shardings of every registry config x ``SHAPES`` cell on both
+    production meshes (16x16 and 2x16x16, every entry ``cuda:0``), each
+    cell's per-device input bytes and whether it fits one H100 whole;
+    then DBRX-132B's MoE layer at full width in f32 (12.7 GB of experts)
+    on the 16x16 mesh, single-process binding (256 shards on the card):
+    ``moe_ffn`` under ``MOE_MODE="ep_decode"`` on 128 one-token rows, and
+    ``moe_ffn`` (TP) and ``moe_ep_ffn`` on 16 x 512 tokens, each within
+    1e-4 x max |y| of ``moe_ffn_local`` per data shard (aux within 1e-4
+    of the all-token load balance), its body run on all 256 shards; wall
+    time and peak memory.
 
 The last three lines of standard output are the kernel JSON record, the
 card line, and ``{"ok": true, "device": {...}}``.  The script imports
@@ -4507,6 +4519,223 @@ def encdec_phase(dev, card: str) -> dict:
     return out
 
 
+# -- [pod]: sharding rules, production meshes, cell specs, the MoE over a mesh
+
+POD_DECODE_SHAPE = "decode_32k"   # ep_decode's batch: 128 one-token rows
+POD_SEQ = 512                     # TP/EP: one 512-token sequence a data shard
+POD_TOL = 1e-4                    # max abs error / max |y|, TF32 off
+H100_BYTES = 80e9                 # one H100's device memory
+
+
+def _leaf_bytes(tree, shardings=None) -> int:
+    """Bytes of a tree's tensors: global, or per device under the
+    matching tree of ``NamedSharding`` (the cache's host ``pos`` and the
+    decode cell's empty generator slot hold none)."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    leaves = pytree.tree_leaves(tree, is_leaf=lambda x: x is None)
+    if shardings is None:
+        shards = [None] * len(leaves)
+    else:
+        shards = pytree.tree_leaves(shardings, is_leaf=lambda x: x is None)
+    total = 0
+    for leaf, sh in zip(leaves, shards):
+        if isinstance(leaf, torch.Tensor):
+            shape = leaf.shape if sh is None else sh.shard_shape(leaf.shape)
+            total += math.prod(shape) * leaf.element_size()
+    return total
+
+
+def _pod_cells(dev) -> dict:
+    """(a) Every registry config x ``SHAPES`` cell on both production
+    meshes (``cuda:0`` at every entry): ``input_specs``, the input and
+    output shardings, per-device bytes of the inputs, and whether the
+    cell's inputs (for a train cell, the train state and batch) fit one
+    H100 whole."""
+    from repro_torch.configs import SHAPES, all_configs
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import make_production_mesh
+
+    meshes = {"16x16": make_production_mesh(),
+              "2x16x16": make_production_mesh(multi_pod=True)}
+    for mesh in meshes.values():
+        if set(mesh.devices.flat) != {dev}:
+            raise AssertionError(f"[pod] production mesh off {dev}: {mesh}")
+    cells, too_big = {}, []
+    for arch, cfg in sorted(all_configs().items()):
+        for name, shape in SHAPES.items():
+            args = SP.input_specs(cfg, shape)
+            whole = _leaf_bytes(args)
+            row = {"bytes": whole, "fits_h100": whole <= H100_BYTES}
+            for tag, mesh in meshes.items():
+                ins = SP.input_shardings(cfg, shape, mesh, args)
+                outs = SP.output_shardings(cfg, shape, mesh, args)
+                if len(ins) != len(args) or not outs:
+                    raise AssertionError(f"[pod] {arch} {name} {tag}: "
+                                         f"shardings do not match the args")
+                row[f"per_device_bytes_{tag}"] = _leaf_bytes(args, ins)
+                row[f"microbatches_{tag}"] = SP.default_microbatches(
+                    cfg, shape, mesh)
+            cells[f"{arch}/{name}"] = row
+            if not row["fits_h100"]:
+                too_big.append(f"{arch}/{name}")
+            log(f"[pod] {arch} {name} ({shape.kind}): inputs "
+                f"{whole / 1e9:.3f} GB whole"
+                f"{'' if row['fits_h100'] else ' (over one H100)'}, per "
+                f"device {row['per_device_bytes_16x16'] / 1e9:.6f} GB on "
+                f"16x16, {row['per_device_bytes_2x16x16'] / 1e9:.6f} GB on "
+                f"2x16x16; microbatches {row['microbatches_16x16']} / "
+                f"{row['microbatches_2x16x16']}")
+    train = [c for c in cells if c.endswith("/train_4k")]
+    log(f"[pod] {len(cells)} cells x 2 meshes; train states over one "
+        f"H100's {H100_BYTES / 1e9:g} GB: "
+        f"{', '.join(c for c in train if c in too_big) or 'none'}; every "
+        f"cell over it: {', '.join(too_big) or 'none'}")
+    return {"cells": cells, "over_one_h100": too_big}
+
+
+def _moe_run(tag: str, fn, want_y, want_aux, dev, counted=None) -> dict:
+    """One mesh function's run against its target: max abs error over max
+    |y|, the aux loss, wall seconds, peak memory, and the shards the body
+    ran on (``counted``: a list the patched body appends to)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (y, aux), wall = _synced(fn)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    scale = float(want_y.abs().max())
+    err = float((y - want_y).abs().max())
+    aux_err = abs(float(aux) - float(want_aux))
+    out = {"max_abs_err": err, "max_abs_y": scale, "rel_err": err / scale,
+           "aux": float(aux), "aux_err": aux_err, "wall_s": wall,
+           "peak_gb": peak, "shards": None if counted is None
+           else len(counted)}
+    log(f"[pod] dbrx-132b MoE layer, {tag}: max_abs_err {err:.3e} (max |y| "
+        f"{scale:.4f}, ratio {err / scale:.3e}, tolerance {POD_TOL:g}); aux "
+        f"{float(aux):.6f} (off by {aux_err:.3e}); wall {wall:.4f} s; peak "
+        f"{peak:.3f} GB; body ran on {out['shards']} shards")
+    if not (torch.isfinite(y).all() and err <= POD_TOL * scale
+            and aux_err <= POD_TOL * abs(float(want_aux))):
+        raise AssertionError(f"[pod] {tag}: {out}")
+    return out
+
+
+def _global_aux(x, p, moe):
+    """The load-balance loss over every token: what the mesh functions'
+    psum of the aux sums over the data axes gives."""
+    from repro_torch.models import moe as M
+
+    B, T, D = x.shape
+    _, _, (me, ce, cnt) = M.router_topk(x.reshape(B * T, D), p["router"],
+                                        moe)
+    return moe.n_experts * (me / cnt * ce / cnt).sum()
+
+
+def _pod_moe(dev) -> dict:
+    """(b) DBRX-132B's MoE layer at full width in f32 (E=16, top-4,
+    D=6144, F=10752; 12.7 GB of experts) on the production 16x16 mesh,
+    single-process binding: 256 shards share the card.  ``moe_ffn`` under
+    ``MOE_MODE="ep_decode"`` on decode_32k's 128 one-token rows,
+    ``moe_ffn`` (TP) and ``moe_ep_ffn`` on 16 x 512 tokens, each against
+    ``moe_ffn_local`` on the card per data shard."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as TF
+    from repro_torch.sharding import rules as R
+
+    cfg = get_config("dbrx-132b")
+    moe, D, Fd = cfg.moe, cfg.d_model, cfg.d_ff
+    mesh = make_production_mesh()
+    n_data = mesh.shape["data"]
+    gen = torch.Generator(dev).manual_seed(0)
+    torch.cuda.empty_cache()
+    (p, _), draw_s = _synced(lambda: (M.init_moe_params(
+        D, Fd, moe, generator=gen, device=dev), None))
+    expert_gb = sum(p[k].numel() * 4 for k in ("w1", "w2", "w3")) / 1e9
+    B_dec = SHAPES[POD_DECODE_SHAPE].global_batch
+    x_dec = torch.randn(B_dec, 1, D, generator=gen, device=dev)
+    x_seq = torch.randn(n_data, POD_SEQ, D, generator=gen, device=dev)
+    log(f"[pod] dbrx-132b MoE layer f32: {expert_gb:.3f} GB of experts "
+        f"drawn in {draw_s:.3f} s; mesh {mesh.shape} on {dev}")
+
+    # the rules place DBRX's experts as moe_ffn_decode_ep reads them
+    mode0 = M.MOE_MODE
+    M.MOE_MODE = "ep_decode"
+    try:
+        specs = R.param_specs(cfg, mesh, TF.abstract_params(cfg))
+        ffn = specs["blocks"][TF.slot_name(0, "attn")]["ffn"]
+        got = {k: tuple(ffn[k])[1:]
+               for k in ("w1", "w3", "w2")}
+        want = {"w1": ("model", None, "data"), "w3": ("model", None, "data"),
+                "w2": ("model", "data", None)}
+        if got != want:
+            raise AssertionError(f"[pod] ep_decode expert specs {got}")
+        calls, body = [], M._ep_decode_local
+        M._ep_decode_local = lambda *a, **k: (calls.append(1),
+                                              body(*a, **k))[1]
+        with torch.no_grad():
+            want_y, want_aux = M.moe_ffn_local(x_dec, p, moe)
+            out = {"ep_decode": _moe_run(
+                f"moe_ffn (MOE_MODE ep_decode -> moe_ffn_decode_ep), "
+                f"[{B_dec}, 1, {D}]", lambda: M.moe_ffn(x_dec, p, moe, mesh),
+                want_y, want_aux, dev, calls)}
+    finally:
+        M.MOE_MODE, M._ep_decode_local = mode0, body
+
+    with torch.no_grad():
+        want_y = torch.cat([M.moe_ffn_local(xb, p, moe)[0]
+                            for xb in x_seq.chunk(n_data)])
+        want_aux = _global_aux(x_seq, p, moe)
+        calls, body = [], M._moe_local
+        M._moe_local = lambda *a, **k: (calls.append(1), body(*a, **k))[1]
+        try:
+            out["tp"] = _moe_run(
+                f"moe_ffn (TP), [{n_data}, {POD_SEQ}, {D}]",
+                lambda: M.moe_ffn(x_seq, p, moe, mesh), want_y, want_aux,
+                dev, calls)
+        finally:
+            M._moe_local = body
+        calls, body = [], M.moe_ep_ffn_local
+        M.moe_ep_ffn_local = lambda *a, **k: (calls.append(1),
+                                              body(*a, **k))[1]
+        try:
+            out["ep"] = _moe_run(
+                f"moe_ep_ffn, [{n_data}, {POD_SEQ}, {D}]",
+                lambda: M.moe_ep_ffn(x_seq, p, moe, mesh), want_y, want_aux,
+                dev, calls)
+        finally:
+            M.moe_ep_ffn_local = body
+    for run in out.values():
+        if run["shards"] != mesh.size:
+            raise AssertionError(f"[pod] a body ran on {run['shards']} of "
+                                 f"{mesh.size} shards")
+    del p, x_dec, x_seq, want_y
+    torch.cuda.empty_cache()
+    return {"experts_gb": expert_gb, **out}
+
+
+def pod_phase(dev, card: str) -> dict:
+    """[pod]: the placement half of the pod tooling on cuda:0; it reaches
+    none of B1-B5."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = _b_launches()
+    out = {"specs": _pod_cells(dev), "moe": _pod_moe(dev), "card": card}
+    if _b_launches() != before:
+        raise AssertionError(f"[pod] the path launched a B kernel: "
+                             f"{before} -> {_b_launches()}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4768,6 +4997,10 @@ def main() -> int:
     encdec = encdec_phase(dev, card)
     log(f"[encdec] {json.dumps(encdec)}")
     log(f"[encdec] {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    pod = pod_phase(dev, card)
+    log(f"[pod] {json.dumps(pod['moe'])}")
+    log(f"[pod] {time.perf_counter() - t0:.3f} s")
 
     log(f"[smoke] {time.perf_counter() - t_start:.3f} s in all")
     log(json.dumps({"kernels": records}))

@@ -5,9 +5,12 @@ Each factory returns a function with the reference's uniform signature
 (state, batch) -> (state, metrics), so any architecture can occupy any
 region.  The loss takes the recurrences' differentiable training route
 (``forward(..., chunked=True)``): the hand-written B4/B5 kernels record no
-gradient and serve only.  On one card the reference's ``mesh``,
-``grad_acc_shardings`` and ``mb_shardings`` have no meaning and are not
-taken, nor ``unroll`` (the port always loops over blocks in Python).
+gradient and serve only.  ``mesh`` (``sharding.spmd.Mesh`` or a named
+``DeviceMesh``) reaches the MoE FFNs.  ``grad_acc_shardings`` and
+``mb_shardings`` are trees of ``NamedSharding`` that constrain the
+gradient accumulator and the microbatch splits: a DTensor is redistributed
+to them, a plain tensor is left as it is (``with_sharding_constraint``).
+``unroll`` is not taken: the port always loops over blocks in Python.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch.utils._pytree as pytree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as TF
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.sharding.spmd import with_sharding_constraint
 
 PyTree = Any
 AUX_WEIGHT = 0.01
@@ -65,14 +69,14 @@ def _on(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def make_loss_fn(cfg: ModelConfig, remat: str = "full",
+def make_loss_fn(cfg: ModelConfig, mesh=None, remat: str = "full",
                  q_chunk: int = 1024):
     """loss_fn(params, batch) -> (total, {"loss", "aux", "n_tokens"}).
     The batch holds ``tokens``, ``labels`` and, for a model with a
     frontend, ``frontend``."""
     def loss_fn(params, batch):
         batch = _on(batch, params["embed"].device)
-        logits, _, aux = TF.forward(params, batch["tokens"], cfg,
+        logits, _, aux = TF.forward(params, batch["tokens"], cfg, mesh=mesh,
                                     frontend_embeds=batch.get("frontend"),
                                     remat=remat, q_chunk=q_chunk,
                                     chunked=True)
@@ -87,18 +91,28 @@ def make_loss_fn(cfg: ModelConfig, remat: str = "full",
     return loss_fn
 
 
-def make_train_step(cfg: ModelConfig, opt: AdamWConfig, remat: str = "full",
-                    microbatches: int = 1, q_chunk: int = 1024,
-                    grad_compression=None, acc_dtype=torch.float32):
+def make_train_step(cfg: ModelConfig, opt: AdamWConfig, mesh=None,
+                    remat: str = "full", microbatches: int = 1,
+                    q_chunk: int = 1024, grad_compression=None,
+                    grad_acc_shardings=None, acc_dtype=torch.float32,
+                    mb_shardings=None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``microbatches`` > 1 accumulates the gradient (in ``acc_dtype``) over
-    that many splits of the batch's leading dim, in order.
+    that many splits of the batch's leading dim, in order; the batch is
+    viewed as [microbatches, B/microbatches, ...] under ``mb_shardings``
+    and each split's gradients under ``grad_acc_shardings`` (the ZeRO-1
+    optimizer-state layout) before they are accumulated.
     ``grad_compression`` is an optional (compress, decompress) pair applied
     to the accumulated gradient (``optim/compression.py``).  The state's
     params, master, m and v are updated in place; the returned state holds
     them and a new ``step``."""
-    loss_fn = make_loss_fn(cfg, remat=remat, q_chunk=q_chunk)
+    loss_fn = make_loss_fn(cfg, mesh=mesh, remat=remat, q_chunk=q_chunk)
+
+    def constrain(tree, shardings):
+        if shardings is None:
+            return tree
+        return pytree.tree_map(with_sharding_constraint, tree, shardings)
 
     def grad_fn(params, batch):
         flat, spec = pytree.tree_flatten(params)
@@ -117,24 +131,28 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, remat: str = "full",
         params = state["params"]
         if microbatches == 1:
             metrics, grads = grad_fn(params, batch)
-            grads = pytree.tree_map(lambda g: g.to(torch.float32), grads)
+            grads = constrain(pytree.tree_map(lambda g: g.to(torch.float32),
+                                              grads), grad_acc_shardings)
         else:
-            def split(x, i):
+            def split(x):
                 x = torch.as_tensor(x)
-                n = x.shape[0] // microbatches
-                return x[i * n:(i + 1) * n]
+                return x.reshape((microbatches, x.shape[0] // microbatches)
+                                 + tuple(x.shape[1:]))
 
-            grads = pytree.tree_map(
+            mbs = constrain({k: split(v) for k, v in batch.items()},
+                            mb_shardings)
+            grads = constrain(pytree.tree_map(
                 lambda p: torch.zeros(p.shape, dtype=acc_dtype,
-                                      device=p.device), params)
+                                      device=p.device), params),
+                grad_acc_shardings)
             dev = params["embed"].device
             metrics = {k: torch.zeros((), dtype=torch.float32, device=dev)
                        for k in ("loss", "aux", "n_tokens")}
             for i in range(microbatches):
-                mb = {k: split(v, i) for k, v in batch.items()}
-                m_i, g_i = grad_fn(params, mb)
-                grads = pytree.tree_map(lambda a, g: a + g.to(acc_dtype),
-                                        grads, g_i)
+                m_i, g_i = grad_fn(params, {k: v[i] for k, v in mbs.items()})
+                g_i = constrain(pytree.tree_map(lambda g: g.to(acc_dtype),
+                                                g_i), grad_acc_shardings)
+                grads = pytree.tree_map(torch.add, grads, g_i)
                 metrics = {k: metrics[k] + m_i[k] / microbatches
                            for k in metrics}
             grads = pytree.tree_map(
@@ -154,12 +172,13 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, remat: str = "full",
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, q_chunk: int = 1024):
+def make_prefill_step(cfg: ModelConfig, mesh=None, q_chunk: int = 1024):
     """prefill(params, batch) -> (cache, last_logits [B,V]); the batch's
     ``frontend`` (patch embeddings or audio frames), where it has one,
     goes to ``forward``."""
     def prefill(params, batch):
         logits, cache, _ = TF.forward(params, batch["tokens"], cfg,
+                                      mesh=mesh,
                                       frontend_embeds=batch.get("frontend"),
                                       want_cache=True, q_chunk=q_chunk,
                                       last_only=True)
@@ -167,7 +186,7 @@ def make_prefill_step(cfg: ModelConfig, q_chunk: int = 1024):
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig, greedy: bool = True):
+def make_decode_step(cfg: ModelConfig, mesh=None, greedy: bool = True):
     """serve_step(params, cache, token, generator=None) -> (next_token
     [B,1] int32, cache).  Greedy takes the first maximal logit, as
     ``jnp.argmax``; otherwise the token is drawn from the softmax of the
@@ -175,7 +194,7 @@ def make_decode_step(cfg: ModelConfig, greedy: bool = True):
     ``jax.random.categorical``.  The cache is updated in place."""
     def serve_step(params, cache, token,
                    generator: Optional[torch.Generator] = None):
-        logits, cache = TF.decode_step(params, cache, token, cfg)
+        logits, cache = TF.decode_step(params, cache, token, cfg, mesh=mesh)
         logits = logits[:, 0, :cfg.vocab_size].float()
         if greedy:
             nxt = torch.argmax(logits, dim=-1)

@@ -7,11 +7,14 @@ stack is grouped into repeating pattern blocks (``cfg.block_pattern``), and
 each slot's parameters are stacked on a leading block axis, as in the
 reference; where the reference scans that axis with ``lax.scan``, the port
 loops over it in Python (``unroll`` has nothing left to choose).  MoE FFNs
-run on the one card (``models/moe.py``); the reference's ``mesh`` has no
-meaning there and is not carried over.  ``forward``'s ``remat`` is the
-reference's activation checkpointing, through ``torch.utils.checkpoint``;
-its ``chunked`` sends the recurrences down their differentiable training
-route instead of the B4/B5 kernels.
+run under ``models/moe.py``'s ``moe_ffn``: ``mesh`` (a
+``sharding.spmd.Mesh`` or a named ``DeviceMesh``) reaches it through
+``forward``/``decode_step``, and decode's ``_kv_seq_spec`` constraint is a
+layout hint (a no-op on the single-process binding, a ``redistribute`` of
+a DTensor cache).  ``forward``'s ``remat`` is the reference's activation
+checkpointing, through ``torch.utils.checkpoint``; its ``chunked`` sends
+the recurrences down their differentiable training route instead of the
+B4/B5 kernels.
 
 The modality frontends are the reference's stubs: precomputed embeddings
 through one ``frontend_proj`` matmul, prepended to the text (vision) or
@@ -43,6 +46,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv as RW
+from repro_torch.sharding.rules import data_axes, named
+from repro_torch.sharding.spmd import P, mesh_shape, with_sharding_constraint
 
 PyTree = Any
 ATTN_KINDS = ("attn", "attn_swa", "attn_local")
@@ -297,10 +302,10 @@ def make_cache_len(cfg: ModelConfig, kind: str, seq_len: int) -> int:
     return min(seq_len, w) if w is not None else seq_len
 
 
-def _ffn(h2, p, cfg: ModelConfig):
+def _ffn(h2, p, cfg: ModelConfig, mesh=None):
     """(y, aux): the MoE's load-balance loss, or 0."""
     if cfg.moe is not None:
-        return MOE.moe_ffn(h2, p["ffn"], cfg.moe)
+        return MOE.moe_ffn(h2, p["ffn"], cfg.moe, mesh)
     y = L.swiglu(h2, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
     return y, _zero(h2)
 
@@ -332,7 +337,7 @@ def _cross_attend(x, p, cfg: ModelConfig, k, v, q_chunk):
 
 
 def attn_block_seq(x, p, cfg: ModelConfig, kind: str, positions,
-                   want_cache=False, causal=True, enc_out=None,
+                   mesh=None, want_cache=False, causal=True, enc_out=None,
                    q_chunk=1024):
     """Returns (x, cache_or_None, aux_loss).  ``causal=False``: the
     encoder's blocks; ``enc_out`` [B,Te,D]: a decoder block of an
@@ -350,7 +355,7 @@ def attn_block_seq(x, p, cfg: ModelConfig, kind: str, positions,
         x = _cross_attend(x, p, cfg, *_cross_kv(enc_out, p["xattn"], cfg),
                           q_chunk)
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    y, aux = _ffn(h2, p, cfg)
+    y, aux = _ffn(h2, p, cfg, mesh)
     x = x + y
     cache = None
     if want_cache:
@@ -393,12 +398,12 @@ def rwkv_block_seq(x, p, cfg: ModelConfig, want_cache=False, state=None,
     return x, cache, _zero(x)
 
 
-def apply_block_seq(x, p, cfg, kind, positions, want_cache=False,
+def apply_block_seq(x, p, cfg, kind, positions, mesh=None, want_cache=False,
                     cache_in=None, enc_out=None, q_chunk=1024, chunked=False):
     """Returns (x, cache_or_None, aux_loss).  ``chunked``: the recurrences'
     differentiable training route (``rwkv.py``, ``rglru.py``)."""
     if kind in ATTN_KINDS:
-        return attn_block_seq(x, p, cfg, kind, positions,
+        return attn_block_seq(x, p, cfg, kind, positions, mesh=mesh,
                               want_cache=want_cache, enc_out=enc_out,
                               q_chunk=q_chunk)
     if kind == "rglru":
@@ -415,8 +420,18 @@ def apply_block_seq(x, p, cfg, kind, positions, want_cache=False,
 # ==========================================================================
 # Block apply — decode (single token, ring caches)
 # ==========================================================================
+def _kv_seq_spec(mesh, B: int, S: int):
+    """Flash-decoding layout for [B,S,H,hd]: batch over data axes, ring
+    length over "model"."""
+    dp = data_axes(mesh)
+    dsz = math.prod(mesh_shape(mesh)[a] for a in dp)
+    bspec = dp if B % max(dsz, 1) == 0 else None
+    sspec = "model" if S % mesh_shape(mesh)["model"] == 0 else None
+    return named(mesh, P(bspec, sspec, None, None))
+
+
 def attn_block_decode(x, p, cache, cfg: ModelConfig, kind: str, pos: int,
-                      enc_cache=None):
+                      mesh=None, enc_cache=None):
     """x: [B,1,D]; cache: {"k","v"} ring [B,S,KV,hd], written in place;
     pos: tokens generated so far (the current token's absolute position);
     enc_cache: this block's cross-attention {"k","v"} [B,Te,KV,hd], every
@@ -430,21 +445,26 @@ def attn_block_decode(x, p, cache, cfg: ModelConfig, kind: str, pos: int,
     slot = pos % kc.shape[1]
     kc[:, slot] = k[:, 0].to(kc.dtype)
     vc[:, slot] = v[:, 0].to(vc.dtype)
-    o = L.decode_attention(q, _expand_kv(kc, cfg.n_heads_c),
-                           _expand_kv(vc, cfg.n_heads_c), pos + 1,
-                           window=window)
+    kx = _expand_kv(kc, cfg.n_heads_c)
+    vx = _expand_kv(vc, cfg.n_heads_c)
+    if mesh is not None and "model" in mesh_shape(mesh):
+        sh = _kv_seq_spec(mesh, kx.shape[0], kc.shape[1])
+        kx = with_sharding_constraint(kx, sh)
+        vx = with_sharding_constraint(vx, sh)
+    o = L.decode_attention(q, kx, vx, pos + 1, window=window)
     _, _, H, hd = o.shape
     x = x + o.reshape(B, 1, H * hd) @ p["wo"]
     if enc_cache is not None:
         x = _cross_attend(x, p, cfg, enc_cache["k"], enc_cache["v"], 1)
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    y, _ = _ffn(h2, p, cfg)
+    y, _ = _ffn(h2, p, cfg, mesh)
     return x + y, {"k": kc, "v": vc}
 
 
-def apply_block_decode(x, p, cache, cfg, kind, pos: int, enc_cache=None):
+def apply_block_decode(x, p, cache, cfg, kind, pos: int, mesh=None,
+                       enc_cache=None):
     if kind in ATTN_KINDS:
-        return attn_block_decode(x, p, cache, cfg, kind, pos,
+        return attn_block_decode(x, p, cache, cfg, kind, pos, mesh=mesh,
                                  enc_cache=enc_cache)
     if kind == "rglru":
         x, st, _ = rglru_block_seq(x, p, cfg, want_cache=True,
@@ -546,7 +566,7 @@ def _group_factor(n: int) -> int:
     return best
 
 
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, mesh=None,
             frontend_embeds: Optional[torch.Tensor] = None,
             want_cache: bool = False, remat: str = "none",
             q_chunk: int = 1024, last_only: bool = False,
@@ -567,7 +587,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     blocks; otherwise as "full").  It applies while autograd records and
     no cache is asked for; every mode gives the same loss and gradients.
     ``chunked`` takes the recurrences' differentiable training route.
-    The encoder is not checkpointed, as in the reference."""
+    The encoder is not checkpointed, as in the reference.  ``mesh``
+    reaches the MoE FFNs (``moe_ffn``)."""
     if remat not in ("none", "full", "2level", "dots"):
         raise ValueError(remat)
     n_full, pat, tail = stack_structure(cfg)
@@ -579,7 +600,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         fe = _project_frontend(params, frontend_embeds)
         x = torch.cat([fe.to(x.dtype), x], dim=1)
     if frontend_embeds is not None and cfg.is_encdec:
-        enc_out = encode(params, frontend_embeds, cfg, q_chunk=q_chunk)
+        enc_out = encode(params, frontend_embeds, cfg, mesh=mesh,
+                         q_chunk=q_chunk)
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device).expand(B, T)
     blocks = {sn: _unbind(params["blocks"][sn], n_full)
@@ -592,7 +614,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         for i, kind in enumerate(pat):
             sn = slot_name(i, kind)
             x, c, a = apply_block_seq(x, blocks[sn][bi], cfg, kind,
-                                      positions, want_cache=want_cache,
+                                      positions, mesh=mesh,
+                                      want_cache=want_cache,
                                       enc_out=enc_out, q_chunk=q_chunk,
                                       chunked=chunked)
             aux = aux + a
@@ -625,7 +648,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         caches["blocks"] = {sn: _stack(cs) for sn, cs in block_caches.items()}
     for i, kind in enumerate(tail):
         x, c, a = apply_block_seq(x, params["tail"][i], cfg, kind, positions,
-                                  want_cache=want_cache, enc_out=enc_out,
+                                  mesh=mesh, want_cache=want_cache,
+                                  enc_out=enc_out,
                                   q_chunk=q_chunk, chunked=chunked)
         aux_total = aux_total + a
         if want_cache:
@@ -645,7 +669,7 @@ def _project_frontend(params, frontend_embeds):
     return frontend_embeds.to(proj.dtype) @ proj
 
 
-def encode(params, frames: torch.Tensor, cfg: ModelConfig, *,
+def encode(params, frames: torch.Tensor, cfg: ModelConfig, *, mesh=None,
            q_chunk: int = 1024) -> torch.Tensor:
     """The whisper-style encoder over precomputed frame embeddings
     [B,Te,D]: ``frontend_proj``, the non-causal ``attn`` blocks with RoPE
@@ -654,8 +678,8 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig, *,
     B, Te, _ = x.shape
     positions = torch.arange(Te, device=x.device).expand(B, Te)
     for p in _unbind(params["encoder"], cfg.encoder_layers):
-        x, _, _ = attn_block_seq(x, p, cfg, "attn", positions, causal=False,
-                                 q_chunk=q_chunk)
+        x, _, _ = attn_block_seq(x, p, cfg, "attn", positions, mesh=mesh,
+                                 causal=False, q_chunk=q_chunk)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -669,7 +693,8 @@ def _enc_cross_cache(params, enc_out, cfg: ModelConfig) -> dict:
             "v": torch.stack([v for _, v in kv])}
 
 
-def decode_step(params, cache, token: torch.Tensor, cfg: ModelConfig):
+def decode_step(params, cache, token: torch.Tensor, cfg: ModelConfig, *,
+                mesh=None):
     """One decode step.  token: [B,1] integer.  Returns (logits [B,1,V],
     cache): the cache is updated in place and returned.  Block ``i`` of
     an encoder-decoder cross-attends to ``cache["enc"]``'s slice ``i``,
@@ -685,10 +710,11 @@ def decode_step(params, cache, token: torch.Tensor, cfg: ModelConfig):
             stacked = cache["blocks"][sn]
             x, c = apply_block_decode(x, _index(params["blocks"][sn], bi),
                                       _index(stacked, bi), cfg, kind, pos,
-                                      enc_cache=enc_bi)
+                                      mesh=mesh, enc_cache=enc_bi)
             _store(stacked, bi, c)
     for i, kind in enumerate(tail):
         x, cache["tail"][i] = apply_block_decode(
-            x, params["tail"][i], cache["tail"][i], cfg, kind, pos)
+            x, params["tail"][i], cache["tail"][i], cfg, kind, pos,
+            mesh=mesh)
     cache["pos"] = pos + 1
     return _readout(params, x, cfg), cache

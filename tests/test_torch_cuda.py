@@ -5,8 +5,10 @@ PyTorch versions, the Client's
 preempt/resume path through CUDA streams (the elastic pool's grow and
 drain among them, the megakernel engine's flag exits, and a migration
 between two shells of a cluster frontend),
-token serving on the attention LM, and ``serve lm`` on the recurrent
-models and on the encoder-decoder (reduced whisper-tiny).  A CUDA kernel has no CPU mode, so every test here carries the
+token serving on the attention LM, ``serve lm`` on the recurrent
+models and on the encoder-decoder (reduced whisper-tiny), and DBRX-132B's
+MoE layer over the production mesh.  A CUDA kernel has no CPU mode, so
+every test here carries the
 ``cuda`` marker and skips without a card.  This file imports nothing of
 the JAX package, so it runs where JAX is absent:
 
@@ -1330,3 +1332,44 @@ def test_cuda_train_loop_restart_equivalence(cuda_device, tmp_path):
     for a, b in zip(_flatten(full)[0], _flatten(resumed)[0]):
         assert a.is_cuda
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("run", ["ep_decode", "tp", "ep"])
+def test_cuda_dbrx_moe_layer_over_the_production_mesh(cuda_device, run,
+                                                      monkeypatch):
+    """DBRX-132B's MoE layer at full width in f32 (E=16, top-4, D=6144,
+    F=10752) on the production 16x16 mesh, single-process binding (256
+    shards on cuda:0), TF32 off: ``moe_ffn`` under ``MOE_MODE="ep_decode"``
+    on 128 one-token rows, ``moe_ffn`` (TP) and ``moe_ep_ffn`` on 16 x 512
+    tokens, against ``moe_ffn_local`` per data shard within 1e-4 x max
+    |y|."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import moe as M
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config("dbrx-132b")
+    mesh = make_production_mesh()
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    p = M.init_moe_params(cfg.d_model, cfg.d_ff, cfg.moe, generator=gen,
+                          device=cuda_device)
+    try:
+        with torch.no_grad():
+            if run == "ep_decode":
+                monkeypatch.setattr(M, "MOE_MODE", "ep_decode")
+                x = torch.randn(128, 1, cfg.d_model, generator=gen,
+                                device=cuda_device)
+                want = M.moe_ffn_local(x, p, cfg.moe)[0]
+                got = M.moe_ffn(x, p, cfg.moe, mesh)[0]
+            else:
+                x = torch.randn(16, 512, cfg.d_model, generator=gen,
+                                device=cuda_device)
+                want = torch.cat([M.moe_ffn_local(xb, p, cfg.moe)[0]
+                                  for xb in x.chunk(16)])
+                fn = M.moe_ffn if run == "tp" else M.moe_ep_ffn
+                got = fn(x, p, cfg.moe, mesh)[0]
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+    finally:
+        del p
+        torch.cuda.empty_cache()

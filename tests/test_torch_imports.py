@@ -2,8 +2,9 @@
 them ``core.pool``, ``controller.controller``, ``obs`` with its six
 modules, the megakernel engine's, the cluster fabric, the checkpoint
 store, the surrogate and attention LMs' persistent kernels, the serve
-CLI, and the training half: optimizer, compression, data pipeline, MoE,
-loss and train step, the train CLI), ``chip_smoke.py`` and the port's
+CLI, the training half: optimizer, compression, data pipeline, MoE,
+loss and train step, the train CLI, and the sharding rules, meshes and
+cell specs), ``chip_smoke.py`` and the port's
 examples bring in neither ``jax`` nor any ``repro.`` module."""
 import os
 import subprocess
@@ -47,7 +48,11 @@ for name in ("repro_torch.core.pool", "repro_torch.controller.controller",
              "repro_torch.optim", "repro_torch.optim.adamw",
              "repro_torch.optim.compression", "repro_torch.data",
              "repro_torch.data.pipeline", "repro_torch.models.moe",
-             "repro_torch.models.lm", "repro_torch.launch.train"):
+             "repro_torch.models.lm", "repro_torch.launch.train",
+             # the pod tooling's placement half
+             "repro_torch.sharding", "repro_torch.sharding.rules",
+             "repro_torch.sharding.spmd", "repro_torch.launch.mesh",
+             "repro_torch.launch.specs"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
