@@ -291,7 +291,24 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``moe_ffn`` (TP) and ``moe_ep_ffn`` on 16 x 512 tokens, each within
     1e-4 x max |y| of ``moe_ffn_local`` per data shard (aux within 1e-4
     of the all-token load balance), its body run on all 256 shards; wall
-    time and peak memory.
+    time and peak memory;
+16. ``[dryrun]``, the analysis half of the pod tooling, which launches
+    none of B1-B5 (checked): ``repro_torch.launch.dryrun`` on DBRX-132B x
+    decode_32k and train_4k (at 2 microbatches, where the cell's default
+    is 16 on 16x16 and 8 on 2x16x16: each microbatch is one more pass of
+    the 40 layers, which the CLI's sweep runs), Qwen3-8B x prefill_32k and
+    RWKV-6 1.6B x long_500k at full size on both production meshes (fake
+    process groups
+    of 256 and 512 ranks, one child process a record, all at once, the
+    card hidden from them), each record ``ok``: per-device bytes, whether
+    it fits, flops, bytes, collective bytes by op, the schedule's first
+    lines.  Then Qwen3-8B at full width with 4 of its 36 layers in bf16,
+    a prefill of 1 x 8192 and a train step of 1 x 4096: each dry-run on a
+    1x1 mesh and run for real on cuda:0, the predicted per-device total
+    within 10 % of the step's peak (``max_memory_allocated()`` less what
+    was allocated before beside its arguments), the dry run's flops equal
+    to ``FlopCounterMode``'s on the card, the median step time beside its
+    bound max(flops / 989e12, bytes / 3.35e12) and their ratio.
 
 The last three lines of standard output are the kernel JSON record, the
 card line, and ``{"ok": true, "device": {...}}``.  The script imports
@@ -306,6 +323,7 @@ after a warm-up in each: host time per chunk, urgent service and wall
 time, then each tree's median and range.  ``python3 chip_smoke.py
 --ab-attention OTHER_TREE`` does the same for B2's and B3's device time per
 launch at phase 9's shapes, and logs each tree's register and spill lines.
+``python3 chip_smoke.py --dryrun`` runs the ``[dryrun]`` phase alone.
 """
 from __future__ import annotations
 
@@ -4736,6 +4754,211 @@ def pod_phase(dev, card: str) -> dict:
     return out
 
 
+# -- [dryrun]: the dry run over fake 256/512-rank groups, held to the card
+# full-size cells, each dry-run on both production meshes, (arch, shape,
+# microbatches: None for the cell's default); DBRX's train record at its
+# default (16 on 16x16) alone took 193-267 s of the phase's wall
+DRYRUN_CELLS = (("dbrx-132b", "decode_32k", None),
+                ("dbrx-132b", "train_4k", 2),
+                ("qwen3-8b", "prefill_32k", None),
+                ("rwkv6-1.6b", "long_500k", None))
+DRYRUN_TIMEOUT_S = 600
+# the check on the card: qwen3-8b at full width with 4 of its 36 layers in
+# bf16 (~2 B parameters: its f32 AdamW state fits one card), a prefill of
+# 1 x 8192 and a train step of 1 x 4096 in 1 microbatch, (seq, batch, reps)
+DRYRUN_CHECK_LAYERS = 4
+DRYRUN_CHECK = {"prefill": (8192, 1, 5), "train": (4096, 1, 3)}
+DRYRUN_MEM_TOL = 0.10
+_DRYRUN_WORKER = r"""
+import json, sys
+sys.path.insert(0, "src")
+from repro_torch.launch.dryrun import dryrun_cell
+rec = dryrun_cell(sys.argv[1], sys.argv[2], multi_pod=sys.argv[3] == "1",
+                  microbatches=json.loads(sys.argv[4]), verbose=False)
+print("RECORD " + json.dumps(rec))
+"""
+
+
+def _dryrun_records() -> list:
+    """``DRYRUN_CELLS`` on both production meshes, one child process a
+    record, all started together; the card is hidden from them (the dry
+    run runs on no device)."""
+    import os
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    procs = [((arch, shape, mp), subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_WORKER, arch, shape, str(mp),
+         json.dumps(mb)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(ROOT))) for arch, shape, mb in DRYRUN_CELLS for mp in (0, 1)]
+    records = []
+    try:
+        for cell, proc in procs:
+            out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"[dryrun] {cell}: exit "
+                                     f"{proc.returncode}: {err[-3000:]}")
+            rec = json.loads(next(ln for ln in out.splitlines()
+                                  if ln.startswith("RECORD "))[7:])
+            if rec["status"] != "ok":
+                raise AssertionError(f"[dryrun] {cell}: {rec}")
+            records.append(rec)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return records
+
+
+def _log_record(rec: dict):
+    from repro_torch.launch.dryrun import HBM_BYTES
+
+    m = rec["memory"]
+    log(f"[dryrun] {rec['arch']} x {rec['shape']} "
+        f"{'2x16x16' if rec['multi_pod'] else '16x16'}: "
+        f"{m['per_device_total'] / 1e9:.3f} GB a device (fits "
+        f"{HBM_BYTES / 2**30:.1f} GiB: {rec['fits_hbm']}), flops "
+        f"{rec['hlo_flops_raw']:.4e}, bytes {rec['hlo_bytes_raw']:.4e}, "
+        f"collective bytes {json.dumps(rec['collectives']['by_op'])} over "
+        f"{rec['collectives']['count']}, run {rec['lower_s']} s")
+    for line in rec["schedule"][:3]:
+        log(f"[dryrun]   {line}")
+
+
+def _dryrun_check(dev, card: str, kind: str) -> dict:
+    """qwen3-8b with ``DRYRUN_CHECK_LAYERS`` layers: the dry run on a 1x1
+    mesh, then the same step for real on the card with plain tensors:
+    predicted per-device total against the peak the step allocates, the
+    dry run's flops against ``FlopCounterMode`` on the card's run, and
+    the step's median time against its bound."""
+    import dataclasses
+    import gc
+    import statistics
+
+    import torch
+    import torch.utils._pytree as pytree
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_region_mesh
+    from repro_torch.models import lm as LM
+    from repro_torch.models import transformer as TF
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"),
+                              n_layers=DRYRUN_CHECK_LAYERS)
+    seq, batch, reps = DRYRUN_CHECK[kind]
+    shape = ShapeConfig(f"{kind}_check", seq, batch, kind)
+    mb = 1 if kind == "train" else None
+    rec = D.dryrun_step(cfg, shape, make_region_mesh([["cpu"]]),
+                        microbatches=mb)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                           device=dev, dtype=torch.int32)
+    if kind == "train":
+        first = LM.init_train_state(cfg, S.cell_opt(cfg), generator=g,
+                                    device=dev, param_dtype=torch.bfloat16)
+        labels = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                               device=dev, dtype=torch.int32)
+        args = (first, {"tokens": tokens, "labels": labels})
+    else:
+        params = TF.init_params(cfg, generator=g, device=dev,
+                                dtype=torch.bfloat16)
+        args = (params, {"tokens": tokens})
+    arg_bytes = sum(t.numel() * t.element_size()
+                    for t in pytree.tree_leaves(args)
+                    if isinstance(t, torch.Tensor))
+    fn = S.step_fn(cfg, shape, make_region_mesh([[dev]]), remat="2level",
+                   microbatches=mb)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    # the step's own footprint: its arguments and what it allocates
+    measured = peak - before + arg_bytes
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        del out
+    del args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    predicted = rec["memory"]["per_device_total"]
+    flops = rec["hlo_flops_raw"]
+    t_flops = flops / D.PEAK_FLOPS_BF16 * 1e3
+    t_bytes = rec["hlo_bytes_raw"] / D.HBM_BW * 1e3
+    bound = max(t_flops, t_bytes)
+    ms = statistics.median(times)
+    res = {"kind": kind, "seq": seq, "batch": batch,
+           "layers": DRYRUN_CHECK_LAYERS,
+           "predicted_bytes": predicted, "measured_bytes": measured,
+           "max_memory_allocated": peak, "allocated_before": before,
+           "argument_bytes": arg_bytes,
+           "mem_ratio": predicted / measured,
+           "dry_flops": flops, "card_flops": fc.get_total_flops(),
+           "dry_bytes": rec["hlo_bytes_raw"], "step_ms": ms,
+           "step_ms_all": times, "bound_ms": bound,
+           "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+           "step_over_bound": ms / bound, "card": card}
+    log(f"[dryrun] check qwen3-8b {DRYRUN_CHECK_LAYERS} layers {kind} "
+        f"{batch} x {seq} bf16 on {card}: predicted {predicted / 1e9:.3f} "
+        f"GB a device, the step's peak {measured / 1e9:.3f} GB "
+        f"(max_memory_allocated {peak / 1e9:.3f} GB, allocated before "
+        f"{before / 1e9:.3f} GB, arguments {arg_bytes / 1e9:.3f} GB); "
+        f"flops dry {flops:.6e} card {res['card_flops']:.6e}; step "
+        f"{ms:.3f} ms (median of {reps}) against a bound of {bound:.3f} ms "
+        f"({res['bound_by']}): {res['step_over_bound']:.3f}x")
+    if abs(predicted / measured - 1) > DRYRUN_MEM_TOL:
+        raise AssertionError(f"[dryrun] {kind}: predicted {predicted} "
+                             f"against {measured} bytes")
+    if res["card_flops"] != flops:
+        raise AssertionError(f"[dryrun] {kind}: dry-run flops {flops} "
+                             f"against {res['card_flops']} on the card")
+    return res
+
+
+def dryrun_phase(dev, card: str) -> dict:
+    """[dryrun]: the analysis half of the pod tooling.  The full-size
+    cells' dry runs (no device), then the check on the card; it reaches
+    none of B1-B5."""
+    before = _b_launches()
+    t0 = time.perf_counter()
+    records = _dryrun_records()
+    wall = time.perf_counter() - t0
+    for rec in records:
+        _log_record(rec)
+    log(f"[dryrun] {len(records)} records ok, {wall:.3f} s wall in "
+        f"{len(records)} processes at once")
+    checks = [_dryrun_check(dev, card, kind) for kind in DRYRUN_CHECK]
+    if _b_launches() != before:
+        raise AssertionError(f"[dryrun] the path launched a B kernel: "
+                             f"{before} -> {_b_launches()}")
+    return {"records": [{k: r[k] for k in ("arch", "shape", "multi_pod",
+                                           "status", "fits_hbm", "memory",
+                                           "hlo_flops_raw", "hlo_bytes_raw",
+                                           "collectives", "lower_s")}
+                        for r in records],
+            "records_wall_s": wall, "checks": checks}
+
+
 def main() -> int:
     import torch
 
@@ -5001,6 +5224,10 @@ def main() -> int:
     pod = pod_phase(dev, card)
     log(f"[pod] {json.dumps(pod['moe'])}")
     log(f"[pod] {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    dry = dryrun_phase(dev, card)
+    log(f"[dryrun] {json.dumps(dry['checks'])}")
+    log(f"[dryrun] {time.perf_counter() - t0:.3f} s")
 
     log(f"[smoke] {time.perf_counter() - t_start:.3f} s in all")
     log(json.dumps({"kernels": records}))
@@ -5185,7 +5412,29 @@ def ab_attention_main(other: str) -> int:
     return 0
 
 
+def dryrun_main() -> int:
+    """``--dryrun``: the ``[dryrun]`` phase alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs on an NVIDIA GPU", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    log(f"[card] {card} (torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda})")
+    t0 = time.perf_counter()
+    dry = dryrun_phase(torch.device("cuda", 0), card)
+    log(f"[dryrun] {json.dumps(dry['checks'])}")
+    log(f"[dryrun] {time.perf_counter() - t0:.3f} s")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun"]:
+        sys.exit(dryrun_main())
     if sys.argv[1:2] == ["--ab"]:
         sys.exit(ab_main(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-attention"]:

@@ -14,6 +14,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
+
+from repro_torch.sharding.spmd import all_reduce_over, keep_shards, on_shards
 
 NEG_INF = -1e30
 
@@ -89,7 +92,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: Optional[float] = None) -> torch.Tensor:
     """Online-softmax attention with GQA (H % KV == 0).  q: [B,Tq,H,hd];
     k, v: [B,Tk,KV,hd]; positions [B,T]; kv_mask [B,Tk] bool.  Returns
-    [B,Tq,H,hd] in q's dtype."""
+    [B,Tq,H,hd] in q's dtype.  DTensors attend shard by shard
+    (``_attention_on_shards``)."""
+    kw = dict(causal=causal, window=window, q_positions=q_positions,
+              k_positions=k_positions, kv_mask=kv_mask, q_chunk=q_chunk,
+              scale=scale)
+    if isinstance(q, DTensor):
+        return _attention_on_shards(q, k, v, **kw)
+    return _attention(q, k, v, **kw)
+
+
+def _attention(q, k, v, *, causal, window, q_positions, k_positions,
+               kv_mask, q_chunk, scale, merge=None):
+    """``attention`` on plain tensors.  ``merge(o, m, denom)``, where
+    given, combines each query chunk's unnormalised output, row max and
+    denominator with those of the other key shards."""
     B, Tq, H, hd = q.shape
     _, Tk, KV, _ = k.shape
     if H % KV:
@@ -130,10 +147,55 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.exp(s - m)
         denom = torch.sum(p, dim=-1, keepdim=True)
         o = torch.einsum("bkgqt,bkth->bkgqh", p.to(v.dtype), vh).float()
+        if merge is not None:
+            o, denom = merge(o, m, denom)
         outs.append(o / torch.clamp(denom, min=1e-30))
     out = torch.cat(outs, dim=3)[:, :, :, :Tq]  # [B, KV, G, Tq, hd]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, hd)
     return out.to(q.dtype)
+
+
+def _attention_on_shards(q, k, v, *, q_positions, k_positions, kv_mask,
+                         **kw):
+    """``attention`` of DTensors, each rank on its own shards
+    (``spmd.on_shards``): the batch and heads are independent, so q, k and
+    v keep their shards of those dims (heads only where k has q's heads).
+    Keys sharded over their sequence (decode's ring,
+    ``transformer._kv_seq_spec``) stay so: q is replicated over those mesh
+    dims, and each query chunk's softmax is merged across them,
+    flash-decoding's all-reduce of the row max, then of the rescaled
+    output and denominator.  Positions and the key mask take the shards of
+    the dims they index.  DTensor left alone would merge the batch and
+    head dims, sharded over two mesh axes, into one bmm dim that it can
+    only gather, and would reduce-scatter the softmax's partial maxima
+    over the sequence."""
+    mesh = q.device_mesh
+    seq = [i for i, p in enumerate(k.placements)
+           if isinstance(p, Shard) and p.dim == 1]
+    if seq:
+        kv_pl = keep_shards(k.placements, {0: 0, 1: 1})
+        q_pl = keep_shards(k.placements, {0: 0})
+    else:
+        q_pl = keep_shards(q.placements, {0: 0, 2: 2}
+                           if k.shape[2] == q.shape[2] else {0: 0})
+        kv_pl = q_pl
+    merge = None
+    if seq:
+        def merge(o, m, denom):
+            w = torch.exp(m - all_reduce_over(m, mesh, seq, "max"))
+            return (all_reduce_over(o * w, mesh, seq),
+                    all_reduce_over(denom * w, mesh, seq))
+
+    def local(q, k, v, q_positions, k_positions, kv_mask):
+        return _attention(q, k, v, q_positions=q_positions,
+                          k_positions=k_positions, kv_mask=kv_mask,
+                          merge=merge, **kw)
+
+    rows = keep_shards(kv_pl, {0: 0, 1: 1})
+    return on_shards(local, mesh,
+                     (q_pl, kv_pl, kv_pl, keep_shards(q_pl, {0: 0}), rows,
+                      rows), list(q_pl),
+                     q, k, v, q_positions, k_positions, kv_mask)
 
 
 def ring_positions(pos: int, S: int, device=None) -> torch.Tensor:

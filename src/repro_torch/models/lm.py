@@ -23,7 +23,8 @@ import torch.utils._pytree as pytree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as TF
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
-from repro_torch.sharding.spmd import with_sharding_constraint
+from repro_torch.sharding.spmd import (lookup_rows, reduce_partial,
+                                       replicate_dim, with_sharding_constraint)
 
 PyTree = Any
 AUX_WEIGHT = 0.01
@@ -34,11 +35,20 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
     Returns (mean_loss, n_valid), in f32, the row max held out of the
     gradient as the reference's ``stop_gradient``."""
     logits = logits.float()
-    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    # over a vocab-sharded DTensor the two reductions are all-reduced
+    m = reduce_partial(torch.amax(logits, dim=-1, keepdim=True)).detach()
     shifted = logits - m
-    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
+    lse = torch.log(reduce_partial(torch.sum(torch.exp(shifted), dim=-1))) \
+        + m[..., 0]
     labels = labels.long()
-    picked = torch.gather(shifted, -1, labels.clamp(min=0)[..., None])[..., 0]
+    idx = labels.clamp(min=0)
+
+    def pick(t, i):
+        return torch.gather(t, -1, i[..., None])[..., 0]
+
+    picked = lookup_rows(shifted, idx, pick, -1)
+    if picked is None:
+        picked = pick(shifted, idx)
     ll = picked + m[..., 0]
     mask = (labels >= 0).float()
     nll = (lse - ll) * mask
@@ -135,15 +145,17 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, mesh=None,
                                               grads), grad_acc_shardings)
         else:
             def split(x):
-                x = torch.as_tensor(x)
+                # a DTensor batch is gathered over its rows, viewed as
+                # microbatches and cut by ``mb_shardings`` again
+                x = replicate_dim(torch.as_tensor(x), 0)
                 return x.reshape((microbatches, x.shape[0] // microbatches)
                                  + tuple(x.shape[1:]))
 
             mbs = constrain({k: split(v) for k, v in batch.items()},
                             mb_shardings)
+            # zeros_like: a DTensor parameter's accumulator is sharded too
             grads = constrain(pytree.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=acc_dtype,
-                                      device=p.device), params),
+                lambda p: torch.zeros_like(p, dtype=acc_dtype), params),
                 grad_acc_shardings)
             dev = params["embed"].device
             metrics = {k: torch.zeros((), dtype=torch.float32, device=dev)
@@ -195,7 +207,8 @@ def make_decode_step(cfg: ModelConfig, mesh=None, greedy: bool = True):
     def serve_step(params, cache, token,
                    generator: Optional[torch.Generator] = None):
         logits, cache = TF.decode_step(params, cache, token, cfg, mesh=mesh)
-        logits = logits[:, 0, :cfg.vocab_size].float()
+        # a vocab-sharded DTensor is gathered before it is cut and reduced
+        logits = replicate_dim(logits, 2)[:, 0, :cfg.vocab_size].float()
         if greedy:
             nxt = torch.argmax(logits, dim=-1)
         else:

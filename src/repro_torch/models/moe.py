@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.sharding.spmd import (P, all_to_all, axis_index, mesh_shape,
@@ -184,9 +185,10 @@ def moe_ffn(x: torch.Tensor, p: dict, moe: MoEConfig, mesh=None):
     """x: [B, T, D] with batch sharded over the data-like axes and D
     replicated; expert weights sharded on F over "model" (the reference's
     ``shard_map`` wrapper).  Without a mesh, or on a one-shard mesh, every
-    expert runs on the one device.  Returns (y, aux_loss)."""
+    expert runs on the one device; DTensors always take the ``shard_map``
+    (its ``torch.distributed`` binding).  Returns (y, aux_loss)."""
     shape = {} if mesh is None else mesh_shape(mesh)
-    if math.prod(shape.values()) <= 1:
+    if math.prod(shape.values()) <= 1 and not isinstance(x, DTensor):
         return moe_ffn_local(x, p, moe)
     if (MOE_MODE == "ep_decode" and x.shape[1] == 1
             and moe.n_experts % shape["model"] == 0):

@@ -26,8 +26,10 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.rglru_scan import ops
+from repro_torch.sharding.spmd import keep_shards, on_shards
 
 C_SCALE = 8.0  # Griffin's fixed temperature on the recurrence gate
 
@@ -94,18 +96,25 @@ def rglru_apply(x: torch.Tensor, p: dict, *,
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [B, T, D] (post-norm input); h0: [B, L]; conv_state: [B, W-1, L].
     Returns (y [B,T,D], h_last [B,L], conv_state).  ``chunked`` takes the
-    training route (module docstring)."""
+    training route (module docstring); DTensors take it too, each rank on
+    its own batch rows and channels (no kernel runs on a DTensor)."""
     u = x @ p["wx"]  # [B, T, L]
     g = F.gelu(x @ p["wg"], approximate="tanh")  # jax.nn.gelu's default
     c, conv_state = causal_conv1d(u, p["conv"], conv_state)
     a, bx = _gates(c.float(), p)
-    if not chunked:
-        hs, h_last = ops.rglru_scan(a, bx, h0)
-    else:
-        if h0 is None:
-            h0 = torch.zeros((x.shape[0], a.shape[-1]), dtype=torch.float32,
-                             device=x.device)
+    if h0 is None and (chunked or isinstance(a, DTensor)):
+        h0 = torch.zeros((x.shape[0], a.shape[-1]), dtype=torch.float32,
+                         device=x.device)
+    if isinstance(a, DTensor):
+        seq = keep_shards(a.placements, {0: 0, 2: 2})
+        rows = keep_shards(a.placements, {0: 0, 2: 1})
+        hs, h_last = on_shards(
+            lambda a, bx, h0: _chunked_scan(a, bx, h0, chunk),
+            a.device_mesh, (seq, seq, rows), (seq, rows), a, bx, h0)
+    elif chunked:
         hs, h_last = _chunked_scan(a, bx, h0, chunk)
+    else:
+        hs, h_last = ops.rglru_scan(a, bx, h0)
     y = (hs.to(x.dtype) * g) @ p["wo"]
     return y, h_last, conv_state
 

@@ -28,9 +28,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.rwkv6 import ops
 from repro_torch.kernels.rwkv6 import ref as rwkv6_ref
+from repro_torch.sharding.spmd import keep_shards, on_shards
 
 
 def token_shift(x: torch.Tensor, x_prev: Optional[torch.Tensor]):
@@ -46,24 +48,33 @@ def _mix(x, xs, mu):
     return x + (xs - x) * mu
 
 
+def _mm(a, w):
+    """``a @ w`` in their promoted dtype, as jnp promotes a product's
+    operands: the f32 mixing coefficients lift bf16 activations to f32,
+    and the bf16 weights follow.  In f32 it is ``a @ w``."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dt) @ w.to(dt)
+
+
 def rwkv_projections(x: torch.Tensor, x_prev, p: dict, n_heads: int,
                      head_dim: int):
-    """r, k, v, g and the log-decay logw (<= 0).  Returns per-head tensors
-    [B,T,H,hd] (g as [B,T,H*hd])."""
+    """r, k, v and the log-decay logw (<= 0), per-head tensors
+    [B,T,H,hd].  The reference also computes the output gate
+    g = silu(mix_g @ wg) and never applies it (XLA drops it, and jit the
+    unread mu_g/wg arguments); the port does not compute it."""
     B, T, D = x.shape
     xs = token_shift(x, x_prev)
-    r = _mix(x, xs, p["mu_r"]) @ p["wr"]
-    k = _mix(x, xs, p["mu_k"]) @ p["wk"]
-    v = _mix(x, xs, p["mu_v"]) @ p["wv"]
-    g = F.silu(_mix(x, xs, p["mu_g"]) @ p["wg"])
+    r = _mm(_mix(x, xs, p["mu_r"]), p["wr"])
+    k = _mm(_mix(x, xs, p["mu_k"]), p["wk"])
+    v = _mm(_mix(x, xs, p["mu_v"]), p["wv"])
     dx = _mix(x, xs, p["mu_w"])
-    d = p["w_bias"] + torch.tanh(dx @ p["w_lora_a"]) @ p["w_lora_b"]
+    d = p["w_bias"] + _mm(torch.tanh(_mm(dx, p["w_lora_a"])), p["w_lora_b"])
     logw = -torch.exp(d.float())  # <= 0
 
     def hsplit(t):
         return t.reshape(B, T, n_heads, head_dim)
 
-    return hsplit(r), hsplit(k), hsplit(v), g, hsplit(logw)
+    return hsplit(r), hsplit(k), hsplit(v), hsplit(logw)
 
 
 def rwkv_time_mix_scan(r, k, v, logw, u, s0=None):
@@ -133,18 +144,30 @@ def rwkv_time_mix(x, p, n_heads, head_dim, x_prev=None, s0=None,
     """Full time-mix sublayer on (pre-normed) x: [B,T,D].
     Returns (y [B,T,D], (x_last [B,D], s_last)).  ``chunked`` takes the
     training route (module docstring); the reference's default is the
-    chunked form, the port's is B5."""
+    chunked form, the port's is B5.  DTensors take the plain forms, each
+    rank on its own batch rows and heads (no kernel runs on a
+    DTensor)."""
     T = x.shape[1]
-    # g is computed and, as in the reference, not applied
-    r, k, v, _g, logw = rwkv_projections(x, x_prev, p, n_heads, head_dim)
+    r, k, v, logw = rwkv_projections(x, x_prev, p, n_heads, head_dim)
     u = p["u"].float()
-    if not chunked:
+
+    def recurrence(r, k, v, logw, u, s0):
+        if T == 1:
+            return rwkv_time_mix_scan(r, k, v, logw, u, s0)
+        return rwkv_time_mix_chunked(r, k, v, logw, u, s0, chunk=chunk)
+
+    if isinstance(r, DTensor):
+        heads = keep_shards(r.placements, {0: 0, 2: 2})
+        state = keep_shards(r.placements, {0: 0, 2: 1})
+        o, s_last = on_shards(recurrence, r.device_mesh,
+                              (heads,) * 4 + (keep_shards(r.placements,
+                                                          {2: 0}), state),
+                              (heads, state), r, k, v, logw, u, s0)
+    elif not chunked:
         o, s_last = ops.rwkv6(r, k, v, logw, u, s0)
-    elif T == 1:
-        o, s_last = rwkv_time_mix_scan(r, k, v, logw, u, s0)
     else:
-        o, s_last = rwkv_time_mix_chunked(r, k, v, logw, u, s0, chunk=chunk)
-    y = group_norm_heads(o.to(x.dtype), p["ln_x"]) @ p["wo"]
+        o, s_last = recurrence(r, k, v, logw, u, s0)
+    y = _mm(group_norm_heads(o.to(x.dtype), p["ln_x"]), p["wo"])
     return y, (x[:, -1, :], s_last)
 
 
@@ -153,8 +176,8 @@ def rwkv_channel_mix(x, p, x_prev=None):
     Returns (y, x_last)."""
     xs = token_shift(x, x_prev)
     xk = _mix(x, xs, p["mu_c"])
-    h = torch.square(F.relu(xk @ p["cm_w1"]))
-    return h @ p["cm_w2"], x[:, -1, :]
+    h = torch.square(F.relu(_mm(xk, p["cm_w1"])))
+    return _mm(h, p["cm_w2"]), x[:, -1, :]
 
 
 def init_rwkv_params(d_model: int, d_ff: int, n_heads: int, head_dim: int,

@@ -38,6 +38,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -47,7 +48,8 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv as RW
 from repro_torch.sharding.rules import data_axes, named
-from repro_torch.sharding.spmd import P, mesh_shape, with_sharding_constraint
+from repro_torch.sharding.spmd import (P, hold_layout, lookup_rows,
+                                       mesh_shape, with_sharding_constraint)
 
 PyTree = Any
 ATTN_KINDS = ("attn", "attn_swa", "attn_local")
@@ -97,8 +99,18 @@ def _store(stacked: dict, i: int, tree: dict):
     already are that block's storage are left alone)."""
     for k, v in tree.items():
         dst = stacked[k][i]
-        if dst.data_ptr() != v.data_ptr():
+        if not _same_memory(dst, v):
             dst.copy_(v)
+
+
+def _same_memory(a, b) -> bool:
+    """Whether ``a`` and ``b`` view the same memory (for DTensors, whether
+    their local shards do): a storage and an offset, which ``meta``
+    tensors have too (their ``data_ptr`` is 0)."""
+    if isinstance(a, DTensor):
+        a, b = a.to_local(), b.to_local()
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset())
 
 
 # ==========================================================================
@@ -281,15 +293,20 @@ def _expand_kv(t: torch.Tensor, n_heads: int) -> torch.Tensor:
 def _seq_to_ring_cache(k, v, S: int) -> dict:
     """Store the last S tokens of k/v at ring slots (t mod S)."""
     B, T, KV, hd = k.shape
-    if T <= S:  # slots are t mod S == t for t < T: already aligned
+    if T == S:  # slot t holds token t: the keys and values themselves
+        return {"k": k, "v": v}
+    if T < S:  # slots are t mod S == t for t < T: already aligned
         return {"k": F.pad(k, (0, 0, 0, 0, 0, S - T)),
                 "v": F.pad(v, (0, 0, 0, 0, 0, S - T))}
-    slots = torch.remainder(torch.arange(T - S, T, device=k.device), S)
-    kc = torch.zeros((B, S, KV, hd), dtype=k.dtype, device=k.device)
-    vc = torch.zeros((B, S, KV, hd), dtype=v.dtype, device=v.device)
-    kc[:, slots] = k[:, T - S:]
-    vc[:, slots] = v[:, T - S:]
-    return {"k": kc, "v": vc}
+    # tokens T-S..T-1 fill every slot once: the last S tokens rotated by
+    # T mod S (a rotation, not an indexed write, which DTensor cannot do)
+    r = T % S
+
+    def ring(t):
+        tail = t[:, T - S:]
+        return torch.cat([tail[:, S - r:], tail[:, :S - r]], dim=1)
+
+    return {"k": ring(k), "v": ring(v)}
 
 
 def cfg_cache_len(cfg: ModelConfig, kind: str) -> int:
@@ -302,12 +319,42 @@ def make_cache_len(cfg: ModelConfig, kind: str, seq_len: int) -> int:
     return min(seq_len, w) if w is not None else seq_len
 
 
+def _act(x, mesh=None):
+    """A sublayer's output [B,T,D] constrained to the residual stream's
+    layout: batch over the data axes where it divides, the rest
+    replicated (the reference's megatron layout, where a row-parallel
+    product's partial sums are all-reduced).  DTensor alone would often
+    reduce-scatter them over T instead and gather the next weight; and a
+    vocab-sharded embedding's partial sums can be reduced only while
+    DTensor holds their mask, so they are reduced here.  A plain tensor,
+    and any tensor without a mesh, is returned as it is."""
+    if mesh is None:
+        return x
+    dp = data_axes(mesh)
+    dsz = math.prod(mesh_shape(mesh)[a] for a in dp)
+    bspec = dp if x.shape[0] % max(dsz, 1) == 0 else None
+    return with_sharding_constraint(
+        x, named(mesh, P(bspec, *([None] * (x.dim() - 1)))))
+
+
+def _embed(params, tokens, mesh=None):
+    """``F.embedding``, not indexing: its backward on the card sums a
+    token's rows in a fixed order (indexing's backward accumulates with
+    atomics).  A DTensor table sharded over its vocab is looked up shard
+    by shard (``lookup_rows``)."""
+    x = lookup_rows(params["embed"], tokens,
+                    lambda t, i: F.embedding(i, t), 0)
+    if x is None:
+        x = F.embedding(tokens.long(), params["embed"])
+    return _act(x, mesh)
+
+
 def _ffn(h2, p, cfg: ModelConfig, mesh=None):
     """(y, aux): the MoE's load-balance loss, or 0."""
     if cfg.moe is not None:
         return MOE.moe_ffn(h2, p["ffn"], cfg.moe, mesh)
     y = L.swiglu(h2, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
-    return y, _zero(h2)
+    return _act(y, mesh), _zero(h2)
 
 
 def _zero(x) -> torch.Tensor:
@@ -322,7 +369,7 @@ def _cross_kv(enc_out, px, cfg: ModelConfig):
             (enc_out @ px["wv"]).reshape(B, Te, KV, hd))
 
 
-def _cross_attend(x, p, cfg: ModelConfig, k, v, q_chunk):
+def _cross_attend(x, p, cfg: ModelConfig, k, v, q_chunk, mesh=None):
     """The cross-attention sublayer: queries from the decoder stream ``x``
     [B,T,D], keys/values [B,Te,KV,hd] from the encoder's output; no RoPE,
     no mask."""
@@ -333,7 +380,7 @@ def _cross_attend(x, p, cfg: ModelConfig, k, v, q_chunk):
         B, T, H, hd)
     o = L.attention(q, _expand_kv(k, H), _expand_kv(v, H), causal=False,
                     q_chunk=q_chunk)
-    return x + o.reshape(B, T, H * hd) @ px["wo"]
+    return x + _act(hold_layout(o.reshape(B, T, H * hd)) @ px["wo"], mesh)
 
 
 def attn_block_seq(x, p, cfg: ModelConfig, kind: str, positions,
@@ -350,10 +397,10 @@ def attn_block_seq(x, p, cfg: ModelConfig, kind: str, positions,
                     window=window, q_positions=positions,
                     k_positions=positions, q_chunk=q_chunk)
     B, T, H, hd = o.shape
-    x = x + o.reshape(B, T, H * hd) @ p["wo"]
+    x = x + _act(hold_layout(o.reshape(B, T, H * hd)) @ p["wo"], mesh)
     if enc_out is not None:
         x = _cross_attend(x, p, cfg, *_cross_kv(enc_out, p["xattn"], cfg),
-                          q_chunk)
+                          q_chunk, mesh)
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     y, aux = _ffn(h2, p, cfg, mesh)
     x = x + y
@@ -367,20 +414,21 @@ def attn_block_seq(x, p, cfg: ModelConfig, kind: str, positions,
 
 
 def rglru_block_seq(x, p, cfg: ModelConfig, want_cache=False, h0=None,
-                    conv_state=None, chunked=False):
+                    conv_state=None, chunked=False, mesh=None):
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     y, h_last, conv_state = RG.rglru_apply(h, p, h0=h0,
                                            conv_state=conv_state,
                                            chunked=chunked)
-    x = x + y
+    x = x + _act(y, mesh)
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    x = x + L.swiglu(h2, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
+    x = x + _act(L.swiglu(h2, p["ffn"]["w1"], p["ffn"]["w3"],
+                          p["ffn"]["w2"]), mesh)
     cache = {"h": h_last, "conv": conv_state} if want_cache else None
     return x, cache, _zero(x)
 
 
 def rwkv_block_seq(x, p, cfg: ModelConfig, want_cache=False, state=None,
-                   chunked=False):
+                   chunked=False, mesh=None):
     """state: None or dict(s, xtm, xcm)."""
     s0 = state["s"] if state else None
     xtm = state["xtm"] if state else None
@@ -389,10 +437,10 @@ def rwkv_block_seq(x, p, cfg: ModelConfig, want_cache=False, state=None,
     y, (x_last_tm, s_last) = RW.rwkv_time_mix(
         h, p, cfg.n_heads, cfg.rwkv_head_dim, x_prev=xtm, s0=s0,
         chunked=chunked)
-    x = x + y.to(x.dtype)
+    x = x + _act(y.to(x.dtype), mesh)
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     y2, x_last_cm = RW.rwkv_channel_mix(h2, p, x_prev=xcm)
-    x = x + y2.to(x.dtype)
+    x = x + _act(y2.to(x.dtype), mesh)
     cache = ({"s": s_last, "xtm": x_last_tm.to(x.dtype),
               "xcm": x_last_cm.to(x.dtype)} if want_cache else None)
     return x, cache, _zero(x)
@@ -410,10 +458,10 @@ def apply_block_seq(x, p, cfg, kind, positions, mesh=None, want_cache=False,
         st = cache_in or {}
         return rglru_block_seq(x, p, cfg, want_cache=want_cache,
                                h0=st.get("h"), conv_state=st.get("conv"),
-                               chunked=chunked)
+                               chunked=chunked, mesh=mesh)
     if kind == "rwkv":
         return rwkv_block_seq(x, p, cfg, want_cache=want_cache,
-                              state=cache_in, chunked=chunked)
+                              state=cache_in, chunked=chunked, mesh=mesh)
     raise ValueError(kind)
 
 
@@ -430,6 +478,20 @@ def _kv_seq_spec(mesh, B: int, S: int):
     return named(mesh, P(bspec, sspec, None, None))
 
 
+def _ring_write(ring, new, pos: int):
+    """Write the token ``new`` [B,1,KV,hd] into slot ``pos mod S`` of the
+    ring [B,S,KV,hd], in place.  A DTensor ring sharded over S cannot be
+    indexed in place, so it is rewritten through a select of the slot,
+    as SPMD partitioners lower a dynamic update of a sharded dim."""
+    S = ring.shape[1]
+    if not isinstance(ring, DTensor):
+        ring[:, pos % S] = new[:, 0].to(ring.dtype)
+        return
+    hit = torch.arange(S, device=new.device) == pos % S
+    ring.copy_(torch.where(hit[None, :, None, None], new.to(ring.dtype),
+                           ring))
+
+
 def attn_block_decode(x, p, cache, cfg: ModelConfig, kind: str, pos: int,
                       mesh=None, enc_cache=None):
     """x: [B,1,D]; cache: {"k","v"} ring [B,S,KV,hd], written in place;
@@ -442,9 +504,8 @@ def attn_block_decode(x, p, cache, cfg: ModelConfig, kind: str, pos: int,
     positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
     q, k, v = _proj_qkv(h, p, cfg, positions)
     kc, vc = cache["k"], cache["v"]
-    slot = pos % kc.shape[1]
-    kc[:, slot] = k[:, 0].to(kc.dtype)
-    vc[:, slot] = v[:, 0].to(vc.dtype)
+    _ring_write(kc, k, pos)
+    _ring_write(vc, v, pos)
     kx = _expand_kv(kc, cfg.n_heads_c)
     vx = _expand_kv(vc, cfg.n_heads_c)
     if mesh is not None and "model" in mesh_shape(mesh):
@@ -453,9 +514,10 @@ def attn_block_decode(x, p, cache, cfg: ModelConfig, kind: str, pos: int,
         vx = with_sharding_constraint(vx, sh)
     o = L.decode_attention(q, kx, vx, pos + 1, window=window)
     _, _, H, hd = o.shape
-    x = x + o.reshape(B, 1, H * hd) @ p["wo"]
+    x = x + _act(o.reshape(B, 1, H * hd) @ p["wo"], mesh)
     if enc_cache is not None:
-        x = _cross_attend(x, p, cfg, enc_cache["k"], enc_cache["v"], 1)
+        x = _cross_attend(x, p, cfg, enc_cache["k"], enc_cache["v"], 1,
+                          mesh)
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     y, _ = _ffn(h2, p, cfg, mesh)
     return x + y, {"k": kc, "v": vc}
@@ -468,10 +530,12 @@ def apply_block_decode(x, p, cache, cfg, kind, pos: int, mesh=None,
                                  enc_cache=enc_cache)
     if kind == "rglru":
         x, st, _ = rglru_block_seq(x, p, cfg, want_cache=True,
-                                   h0=cache["h"], conv_state=cache["conv"])
+                                   h0=cache["h"], conv_state=cache["conv"],
+                                   mesh=mesh)
         return x, st
     if kind == "rwkv":
-        x, st, _ = rwkv_block_seq(x, p, cfg, want_cache=True, state=cache)
+        x, st, _ = rwkv_block_seq(x, p, cfg, want_cache=True, state=cache,
+                                  mesh=mesh)
         return x, st
     raise ValueError(kind)
 
@@ -592,12 +656,10 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, mesh=None,
     if remat not in ("none", "full", "2level", "dots"):
         raise ValueError(remat)
     n_full, pat, tail = stack_structure(cfg)
-    # F.embedding, not indexing: its backward on the card sums a token's
-    # rows in a fixed order (indexing's backward accumulates with atomics)
-    x = F.embedding(tokens.long(), params["embed"])
+    x = _embed(params, tokens, mesh)
     enc_out = None
     if frontend_embeds is not None and cfg.frontend == "vision":
-        fe = _project_frontend(params, frontend_embeds)
+        fe = _act(_project_frontend(params, frontend_embeds), mesh)
         x = torch.cat([fe.to(x.dtype), x], dim=1)
     if frontend_embeds is not None and cfg.is_encdec:
         enc_out = encode(params, frontend_embeds, cfg, mesh=mesh,
@@ -674,7 +736,7 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig, *, mesh=None,
     """The whisper-style encoder over precomputed frame embeddings
     [B,Te,D]: ``frontend_proj``, the non-causal ``attn`` blocks with RoPE
     on positions 0..Te-1, then ``enc_norm``.  Returns [B,Te,D]."""
-    x = _project_frontend(params, frames)
+    x = _act(_project_frontend(params, frames), mesh)
     B, Te, _ = x.shape
     positions = torch.arange(Te, device=x.device).expand(B, Te)
     for p in _unbind(params["encoder"], cfg.encoder_layers):
@@ -702,7 +764,7 @@ def decode_step(params, cache, token: torch.Tensor, cfg: ModelConfig, *,
     n_full, pat, tail = stack_structure(cfg)
     pos = cache["pos"]
     enc = cache.get("enc")
-    x = F.embedding(token.long(), params["embed"])
+    x = _embed(params, token, mesh)
     for bi in range(n_full):
         enc_bi = None if enc is None else _index(enc, bi)
         for i, kind in enumerate(pat):

@@ -21,7 +21,16 @@ runs it under one of two bindings, chosen by the mesh:
   the global inputs; the rank takes its block by its mesh coordinate, runs
   the body with the collectives of the mesh dims' process groups
   (functional collectives), and all-gathers the outputs by ``out_specs``,
-  so every rank returns the global result.
+  so every rank returns the global result.  Given DTensors, a rank's
+  block is its local shard after a redistribute to ``in_specs``, and the
+  outputs are returned as DTensors placed by ``out_specs``, not
+  gathered.  Its gradient takes each rank's backward as one term of a
+  sum: an input replicated over a mesh dim gets partial sums over it, an
+  output replicated over ``n`` ranks hands each ``1/n`` of its gradient,
+  and ``psum`` and ``all_to_all`` are their own adjoints.  (The
+  reference's ``shard_map`` tracks which values vary across a mesh dim
+  and transposes ``psum`` to a broadcast; this binding does not track
+  it, so its backward all-reduces where the reference's broadcasts.)
 
 A dim sharded over several axes, ``("model", "data")``, is split
 major-to-minor in the spec's order on both bindings, as ``shard_map``
@@ -46,6 +55,8 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 Axes = Union[None, str, Tuple[str, ...]]
 
@@ -145,24 +156,163 @@ class NamedSharding:
     @property
     def placements(self) -> tuple:
         """The DTensor placements: ``Shard(d)`` on each mesh dim that
-        shards tensor dim ``d``, ``Replicate()`` on the others."""
-        from torch.distributed.tensor import Replicate, Shard
-
+        shards tensor dim ``d``, ``Replicate()`` on the others and on a
+        mesh dim of size 1 (one shard is the whole; DTensor would refuse
+        to view a size-1 dim "sharded" over it away)."""
+        sizes = mesh_shape(self.mesh)
         dim_of = {a: d for d, part in enumerate(self.spec)
                   for a in spec_axes(part)}
-        return tuple(Shard(dim_of[a]) if a in dim_of else Replicate()
-                     for a in axis_names(self.mesh))
+        return tuple(Shard(dim_of[a]) if a in dim_of and sizes[a] > 1
+                     else Replicate() for a in axis_names(self.mesh))
 
 
 def with_sharding_constraint(t, sharding: Optional[NamedSharding]):
     """The reference's layout hint: a DTensor is redistributed to
-    ``sharding``; a plain tensor (the single-process binding holds global
-    tensors) is returned as it is."""
-    from torch.distributed.tensor import DTensor
-
+    ``sharding``, and so is its gradient, as XLA constrains the cotangent
+    of a constrained value too (DTensor alone would carry the gradient's
+    partial sums on, and the next product's backward would gather its
+    weight instead of reducing them); a plain tensor (the single-process
+    binding holds global tensors) is returned as it is."""
     if sharding is None or not isinstance(t, DTensor):
         return t
-    return t.redistribute(sharding.mesh, sharding.placements)
+    return _Constrain.apply(t, sharding.mesh, sharding.placements)
+
+
+def hold_layout(t):
+    """A DTensor as it is, whose gradient is redistributed to its layout
+    (XLA gives a cotangent its primal's sharding); a plain tensor as it
+    is.  Where a product shards a dim its producer replicated (attention
+    heads that do not divide the model axis, an output projection whose
+    rows do), DTensor would hand the producer's backward a sharded
+    gradient that its view cannot split."""
+    if not isinstance(t, DTensor):
+        return t
+    return _Constrain.apply(t, t.device_mesh, t.placements)
+
+
+class _Constrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, placements):
+        ctx.mesh, ctx.placements = mesh, placements
+        return t.redistribute(mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(ctx.mesh, ctx.placements), None, None
+
+
+def keep_shards(placements, dims: dict) -> tuple:
+    """Placements for a tensor laid out along ``placements`` (those of
+    another tensor) at the dims named in ``dims``, {dim there: dim here}:
+    a mesh dim that shards one of those dims shards its image here, every
+    other mesh dim replicates."""
+    return tuple(Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims
+                 else Replicate() for p in placements)
+
+
+def on_shards(fn, mesh, in_placements, out_placements, *args):
+    """``fn(*args)`` run by each rank on its local shards, through torch's
+    ``local_map``: each tensor argument is redistributed to its entry of
+    ``in_placements`` (a plain tensor is taken as replicated), and each
+    output comes back as a DTensor placed by ``out_placements`` (one
+    tuple of placements an output, or a list for a single output).  A
+    function independent along the sharded dims (batch rows, heads,
+    channels) so computes the global result; one that needs the other
+    shards reduces over them itself (``all_reduce_over``).  An argument
+    replicated over a mesh dim that shards an output (or leaves it
+    partial) gets its gradient as partial sums over that dim, one from
+    each rank's output: ``local_map``'s ``in_grad_placements``."""
+    rep = (Replicate(),) * mesh.ndim
+    args = tuple(DTensor.from_local(a, mesh, rep, run_check=False)
+                 if isinstance(a, torch.Tensor)
+                 and not isinstance(a, DTensor) else a for a in args)
+    in_pl = tuple(pl if isinstance(a, torch.Tensor) else None
+                  for a, pl in zip(args, in_placements))
+    outs = (out_placements,) if isinstance(out_placements, list) \
+        else out_placements
+    differ = [any(isinstance(o[d], Shard) or o[d].is_partial() for o in outs)
+              for d in range(mesh.ndim)]
+    grad_pl = tuple(None if pl is None else tuple(
+        Partial() if isinstance(p, Replicate) and differ[d] else p
+        for d, p in enumerate(pl)) for pl in in_pl)
+    return local_map(fn, out_placements, in_pl, grad_pl, mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def all_reduce_over(t: torch.Tensor, mesh, dims, op: str = "sum"):
+    """A local tensor ``t`` reduced (``"sum"`` or ``"max"``) across the
+    ranks of the mesh dims ``dims``, inside ``on_shards``."""
+    import torch.distributed._functional_collectives as funcol
+
+    for d in dims:
+        t = funcol.wait_tensor(funcol.all_reduce(t.contiguous(), op,
+                                                 (mesh, d)))
+    return t
+
+
+def reduce_partial(t):
+    """A DTensor's pending partial sums (or maxima) reduced now, each
+    partial mesh dim made replicated; a plain tensor as it is.  Left to
+    itself, DTensor often reduce-scatters a reduction's partials over
+    another dim (the sequence), and every later op and its gradient
+    follows that layout."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if p.is_partial() else p for p in t.placements])
+
+
+def replicate_dim(t, dim: int):
+    """A DTensor with its dim ``dim`` gathered on every mesh dim that
+    shards it (the rest of its placements kept); a plain tensor as it
+    is.  DTensor cannot view a sharded dim as [n, size/n] unless n
+    divides into its shards, so a dim is gathered before such a view."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if isinstance(p, Shard) and p.dim == dim else p
+        for p in t.placements])
+
+
+def lookup_rows(table, ids, lookup, dim: int):
+    """``lookup(table, ids)``, which reads ``table`` at ``ids`` along its
+    dim ``dim`` (the embedding's rows, a gather's last dim), for a
+    DTensor ``table`` that one mesh dim shards over that dim: each rank
+    looks up the ids its block holds, zeros the others, and the partial
+    sums over that mesh dim are reduced.  (DTensor's own masked partials
+    cannot be reduced once another op has run, nor differentiated back
+    into a plain partial.)  Returns None where ``table`` is not such a
+    DTensor: the caller then runs ``lookup`` itself.  ``lookup(t, i)`` takes local tensors and is given
+    ids clamped into the block; its result has ``ids``'s dims first."""
+    if not isinstance(table, DTensor):
+        return None
+    dim %= table.dim()
+    mds = [i for i, p in enumerate(table.placements)
+           if isinstance(p, Shard) and p.dim == dim]
+    if len(mds) != 1:
+        return None
+    (md,) = mds
+    mesh = table.device_mesh
+    rows = table.to_local().shape[dim]
+    first = mesh.get_coordinate()[md] * rows
+    n_ids = ids.dim()
+    id_pl = tuple(p if i != md and isinstance(p, Shard) and p.dim < n_ids
+                  else Replicate()
+                  for i, p in enumerate(getattr(ids, "placements",
+                                                (Replicate(),) * mesh.ndim)))
+
+    def local(t, i):
+        i = i.long() - first
+        ok = (i >= 0) & (i < rows)
+        val = lookup(t, i.clamp(0, rows - 1))
+        return val * ok.reshape(ok.shape + (1,) * (val.dim() - ok.dim())
+                                ).to(val.dtype)
+
+    out = on_shards(local, mesh, (table.placements, id_pl),
+                    [Partial() if i == md else p for i, p in enumerate(id_pl)],
+                    table, ids)
+    return out.redistribute(mesh, [Replicate() if i == md else p
+                                   for i, p in enumerate(out.placements)])
 
 
 # --------------------------------------------------------------------------
@@ -363,6 +513,21 @@ def _assemble_tree(specs, outs: list, coords: list, sizes: dict):
 # --------------------------------------------------------------------------
 # The torch.distributed binding
 # --------------------------------------------------------------------------
+class _SelfAdjoint(torch.autograd.Function):
+    """A collective that is its own adjoint: an all-reduce's sum, or an
+    all-to-all of equal blocks.  Its backward is the same collective on
+    the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, run):
+        ctx.run = run
+        return run(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.run(grad.contiguous()), None
+
+
 def _collective_dist(req: Collective, mesh, coord: dict):
     import torch.distributed._functional_collectives as funcol
 
@@ -371,14 +536,16 @@ def _collective_dist(req: Collective, mesh, coord: dict):
     t = req.tensor.contiguous()
     if req.op == "psum":
         for a in req.axes:
-            t = funcol.wait_tensor(
-                funcol.all_reduce(t, "sum", mesh.get_group(a)))
+            t = _SelfAdjoint.apply(t, lambda u, g=mesh.get_group(a):
+                                   funcol.wait_tensor(
+                                       funcol.all_reduce(u, "sum", g)))
         return t
     (a,) = req.axes
     n = mesh_shape(mesh)[a]
     moved = t.movedim(req.split, 0).contiguous()
-    got = funcol.wait_tensor(funcol.all_to_all_single(
-        moved, None, None, mesh.get_group(a)))
+    got = _SelfAdjoint.apply(moved, lambda u, g=mesh.get_group(a):
+                             funcol.wait_tensor(funcol.all_to_all_single(
+                                 u, None, None, g)))
     if not req.tiled:  # got[s] is source s's slice
         return got.movedim(0, req.concat)
     parts = got.reshape(n, moved.shape[0] // n, *moved.shape[1:]).unbind(0)
@@ -396,11 +563,35 @@ def _gather_dist(t: torch.Tensor, spec: P, mesh):
     return t
 
 
+class _ShareGrad(torch.autograd.Function):
+    """Identity; the gradient is divided by ``n``, the ranks that hold
+    the value replicated, so that their gradients sum to it."""
+
+    @staticmethod
+    def forward(ctx, t, n):
+        ctx.n = n
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.n, None
+
+
 def _run_distributed(body, mesh, in_specs, out_specs, args):
     sizes = mesh_shape(mesh)
     coord = dict(zip(sizes, mesh.get_coordinate()))
-    gen = body(*_map_specs(lambda s, t: _block(t, s, coord, sizes),
-                           in_specs, args))
+    dtensors = any(isinstance(t, DTensor) for t in _leaves(args))
+
+    def block(spec, t):
+        if isinstance(t, DTensor):
+            # its block by DTensor's own layout; each rank's gradient is
+            # one term of the sum over the mesh dims that replicate it
+            pl = NamedSharding(mesh, spec).placements
+            return t.redistribute(mesh, pl).to_local(grad_placements=[
+                Partial() if isinstance(p, Replicate) else p for p in pl])
+        return _block(t, spec, coord, sizes)
+
+    gen = body(*_map_specs(block, in_specs, args))
     value = None
     while True:
         try:
@@ -409,7 +600,26 @@ def _run_distributed(body, mesh, in_specs, out_specs, args):
             outs = stop.value
             break
         value = _collective_dist(req, mesh, coord)
+    if dtensors:  # the outputs stay sharded, as DTensors
+
+        def out(spec, t):
+            pl = NamedSharding(mesh, spec).placements
+            n = math.prod(mesh.size(d) for d, p in enumerate(pl)
+                          if isinstance(p, Replicate))
+            if n > 1 and t.requires_grad:
+                t = _ShareGrad.apply(t, n)
+            return DTensor.from_local(t, mesh, pl, run_check=False)
+
+        return _map_specs(out, out_specs, outs)
     return _map_specs(lambda s, t: _gather_dist(t, s, mesh), out_specs, outs)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 def shard_map(body, mesh, in_specs, out_specs):

@@ -52,7 +52,10 @@ for name in ("repro_torch.core.pool", "repro_torch.controller.controller",
              # the pod tooling's placement half
              "repro_torch.sharding", "repro_torch.sharding.rules",
              "repro_torch.sharding.spmd", "repro_torch.launch.mesh",
-             "repro_torch.launch.specs"):
+             "repro_torch.launch.specs",
+             # the pod tooling's analysis half
+             "repro_torch.launch.dryrun",
+             "repro_torch.launch.comm_analysis"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
