@@ -200,7 +200,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``csrc/attn_lm.cu``) against their plain versions on the card (the
    host loop over the chunk body: cuBLAS f32 products, B2/B3) at phase 8's
    weights and shapes, the flag at every boundary of one task each at
-   budgets 1, 2 and 4 and at random boundaries of 3 more: tokens, tables
+   budgets 1, 2, 4 and 8 (M4 also at the prompts of ``ATTN_EMIT_LENS``)
+   and at random boundaries of 3 more: tokens, tables
    and context words bitwise, K/V within 2e-5, with the smallest top-two
    gap of the plain logits among the emitted tokens; their device time a
    launch and a chunk at the main path's budget (``torch.profiler``, else
@@ -446,8 +447,12 @@ F32_TOL, BF16_TOL = 2e-5, 2e-2
 # flag at every boundary of one task each, then random boundaries of
 # ATTN_RANDOM_TASKS tasks at budget 1; the flag-lag launch of M5 runs
 # ATTN_LAG_STEPS steps (never reached) and the host writes the flag once
-# it has published ATTN_LAG_AT chunks
-ATTN_BUDGETS = (1, 2, 4)
+# it has published ATTN_LAG_AT chunks.  At budget 8 M4's one chunk of 512
+# rows takes 4 passes of its projections.  M4 also runs, at every boundary
+# at the main path's budget, prompts of ATTN_EMIT_LENS: rows that all emit
+# in its first chunk, and rows that emit in each of its 4 chunks
+ATTN_BUDGETS = (1, 2, 4, 8)
+ATTN_EMIT_LENS = ((3, 9, 20, 32), (10, 40, 70, 100))
 ATTN_RANDOM_TASKS = 3
 ATTN_PROMPT_LENS = (8, 96)
 ATTN_LAG_STEPS = 400
@@ -2372,11 +2377,13 @@ def check_serving_trace(run: dict, tracer, reg):
 
 # -- [serve, mega]: M4/M5, the attention LM's persistent kernels -------------
 
-def _attn_buffers(kind: str, dev, rng, weights, p, steps: int = None):
+def _attn_buffers(kind: str, dev, rng, weights, p, steps: int = None,
+                  lens=None):
     """One attention-LM task's buffers on the card, twice (M4/M5's and the
     plain version's; the weights shared), and its scalars, at the serving
     shapes: for ``prefill`` ``prefill_batch`` rows of seeded prompts of
-    ``ATTN_PROMPT_LENS`` tokens; for ``decode`` ``max_slots`` rows of a
+    ``ATTN_PROMPT_LENS`` tokens (or of the lengths ``lens``); for
+    ``decode`` ``max_slots`` rows of a
     ``round_tokens``-step round (or ``steps``) over shuffled pages of
     random pools, row 0 live all round, the others live, dead (inactive)
     or short (fewer tokens than the round, 0 included) at random."""
@@ -2390,7 +2397,8 @@ def _attn_buffers(kind: str, dev, rng, weights, p, steps: int = None):
         prompt = np.zeros((PB, P), np.int32)
         meta = np.zeros((PB, A.META_W), np.int32)
         for r in range(PB):
-            n = int(rng.integers(ATTN_PROMPT_LENS[0], ATTN_PROMPT_LENS[1] + 1))
+            n = lens[r] if lens else int(rng.integers(ATTN_PROMPT_LENS[0],
+                                                      ATTN_PROMPT_LENS[1] + 1))
             prompt[r, :n] = rng.integers(0, p.vocab, n)
             meta[r, 0] = n
         kv = np.zeros((PB, P, p.kv_heads, p.head_dim), np.float32)
@@ -2526,7 +2534,8 @@ def _emitted_gap(kind: str, plain, table0, p) -> float:
 def _attn_checks(dev, rng, weights, p) -> dict:
     """M4/M5 against their plain versions at the serving widths and shapes:
     the flag at every boundary of one task each (the flag at boundary k of
-    a fresh task, then at k for every resume) at budgets 1, 2 and 4, then
+    a fresh task, then at k for every resume) at ``ATTN_BUDGETS`` (M4 also
+    with ``ATTN_EMIT_LENS``' prompts at the main path's budget), then
     random boundaries of ``ATTN_RANDOM_TASKS`` tasks at budget 1.  Returns
     the launches compared, the largest K/V difference and the smallest
     top-two gap of the plain logits among the emitted tokens, per kernel."""
@@ -2548,6 +2557,19 @@ def _attn_checks(dev, rng, weights, p) -> dict:
                                         budget, flag, k)
                     n_launch, err = n_launch + 1, max(err, e)
                 gap = min(gap, _emitted_gap(kind, plain, table0, p))
+        for lens in ATTN_EMIT_LENS if kind == "prefill" else ():
+            budget = SERVE_CHUNK_BUDGET
+            for k in range(0, -(-steps // budget) + 1):
+                mine, plain, sc = _attn_buffers(kind, dev, rng, weights, p,
+                                                lens=lens)
+                ctx = ContextRecord.fresh()
+                while not ctx.done:
+                    ctx, e = _attn_step(kind, mine, plain, sc, p, ctx,
+                                        budget, flag, k)
+                    n_launch, err = n_launch + 1, max(err, e)
+                if not bool((mine[0][:, 0] >= 0).all()):
+                    raise AssertionError(f"[serve, mega] prompts {lens}: a "
+                                         f"row emitted no token")
         small = n_launch
         for _ in range(ATTN_RANDOM_TASKS):
             mine, plain, sc = _attn_buffers(kind, dev, rng, weights, p)
@@ -2561,7 +2583,8 @@ def _attn_checks(dev, rng, weights, p) -> dict:
         log(f"[serve, mega] {m} ({kind}) equals its plain version at "
             f"d_model {p.d_model}, vocab {p.vocab}, {p.n_heads} heads, "
             f"{p.kv_heads} KV heads, hd {p.head_dim}: {small} launches at "
-            f"every boundary of a {steps}-step task (budgets {ATTN_BUDGETS}), "
+            f"every boundary of a {steps}-step task (budgets {ATTN_BUDGETS}"
+            f"{'; prompts ' + str(ATTN_EMIT_LENS) if kind == 'prefill' else ''}), "
             f"{n_launch - small} at random boundaries of {ATTN_RANDOM_TASKS} "
             f"tasks; tokens, tables and context words bitwise, K/V max abs "
             f"difference {err:.3e} (tolerance {F32_TOL:g}); smallest top-two "
@@ -3729,17 +3752,43 @@ def _seq_times(dev, rng, launches: dict, errs: dict) -> list:
         # term's product, 3 sums, the row sum), at the table's f32 rate
         ops_ms = 7 * rows * d * steps / F32_OPS_PER_S * 1e3
         step_ms = state_b / HBM_BYTES_PER_S * 1e3
+        # the serial chain at budget 1 (a step a chunk), each term at its
+        # latency as the probe measured it on this card in this run: the
+        # chunk's flag read and its 2 barriers, which the chunk semantics
+        # put between two steps, and the step's dependent part with the
+        # state in registers (M2: the element's multiply-add; M3: the
+        # token's multiply-add, a lane's d/32 adds, 5 shuffle-add pairs
+        # and the token's own arithmetic, which feeds the next step)
+        pr = QK.latency_probe(flag, d, v, warps=min(rows, 32))
+        step_cyc = (pr["imad"] if kernel == "SeqPrefill" else
+                    pr["imad"] + d // 32 * pr["iadd"] + 5 * pr["shfl_add"]
+                    + pr["token_of"])
+        chunk_cyc = pr["flag_read"] + 2 * pr["bar_sync"] + step_cyc
+        us = lambda c: c * pr["ns_per_cycle"] * 1e-3  # noqa: E731
+        chain_ms = steps * us(chunk_cyc) * 1e-3
+        chunk_us = dev_ms["kernel"] / steps * 1e3
+        body = "m2_step" if kernel == "SeqPrefill" else "m3_step"
         log(f"[decode] {name} ({'M2' if kernel == 'SeqPrefill' else 'M3'}) "
             f"{shape}, budget 1 ({steps} chunks a launch): "
             f"{dev_ms['kernel']:.6f} ms device a launch ({hows['kernel']}), "
-            f"{dev_ms['kernel'] / steps * 1e3:.4f} us a chunk; wall (CUDA "
+            f"{chunk_us:.4f} us a chunk; wall (CUDA "
             f"events, back to back) {wall_ms:.6f} ms a launch; the plain "
             f"version (host loop, torch kernels) {dev_ms['plain']:.6f} ms "
             f"device a task ({hows['plain']}); bound {max(bytes_ms, ops_ms) * 1e3:.4f} "
             f"us a launch (bytes {bytes_ms * 1e3:.4f}, operations "
             f"{ops_ms * 1e3:.4f}); the state's bytes a step "
-            f"{step_ms * 1e3:.4f} us: latency-bound, a step is a dependent "
-            f"chain")
+            f"{step_ms * 1e3:.4f} us")
+        log(f"[decode] {name} latency probe (seq_latency_probe, "
+            f"{min(rows, 32)} warps, measured, cycles a repetition at "
+            f"{pr['ns_per_cycle']:.6f} ns a cycle): "
+            + ", ".join(f"{k} {pr[k]:.2f}" for k in QK.PROBE_STEPS)
+            + f"; serial chain {chunk_cyc:.2f} cycles = {us(chunk_cyc):.4f} "
+            f"us a chunk, {chain_ms * 1e3:.4f} us a launch "
+            f"({chain_ms / dev_ms['kernel'] * 100:.2f} % of its time); of a "
+            f"measured chunk ({chunk_us:.4f} us) the flag read is "
+            f"{us(pr['flag_read']):.4f} us ({us(pr['flag_read']) / chunk_us * 100:.2f} %), "
+            f"the probe's boundary {us(pr['boundary']):.4f} us and step "
+            f"{us(pr[body]):.4f} us")
         records.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/seq_lm.cu",
@@ -5314,8 +5363,13 @@ from repro_torch.kernels.decode_attention import kernel as DK
 from repro_torch.kernels.decode_attention import ref as DR
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ref as FR
+from repro_torch.core.context import ContextRecord
+from repro_torch.core.preemption import PreemptFlag
+from repro_torch.kernels.attn_lm import kernel as AK
+from repro_torch.serving import attention as A
 assert FK.__file__.startswith(tree) and DK.__file__.startswith(tree)
-libs = ("flash_attention", "decode_attention")
+assert AK.__file__.startswith(tree)
+libs = ("flash_attention", "decode_attention", "attn_lm")
 native.load_libraries(libs)
 build = {n: [ln.strip() for ln in native.build_info[n]["log"].splitlines()
              if "registers" in ln or "spill" in ln] for n in libs}
@@ -5347,14 +5401,48 @@ err = {"flash_attention": max(float((got - FR.flash_attention(
            for o, got in zip(range(0, S, C), flash())),
        "decode_attention": float((decode() - DR.paged_decode_attention(
            qs, k_pool, v_pool, tables, pos, scale=scale)).abs().max())}
+# M4 and M5 at [serve, mega]'s widths, shapes and budget, on seeded weights
+# drawn on the card (build_weights' scales): a whole task a launch, held
+# against the plain version once
+p = A.AttentionParams(
+    d_model=cs.SERVING["d_model"], vocab=cs.SERVING["vocab_size"],
+    n_heads=H, kv_heads=KV, head_dim=hd, block_size=BS, max_ctx=S,
+    seed=cs.SERVING["weights_seed"])
+_, pe0, q0, _, _, _, rows = A._row_offsets(p)
+gen = torch.Generator(device=dev).manual_seed(p.seed)
+weights = torch.randn((rows, p.d_model), generator=gen, device=dev)
+weights[pe0:q0] *= 0.5
+weights[q0:] *= 1.0 / p.d_model ** 0.5
+flag, fresh = PreemptFlag(dev), ContextRecord.fresh()
+B0 = cs.SERVE_CHUNK_BUDGET
+one, four = cs.ATTN_EMIT_LENS  # rows emitting in one chunk, in four
+mega = {}
+for kind, name, budget, lens in (
+        ("prefill", "attn_prefill_mega", B0, None),
+        ("prefill", "attn_prefill_mega/one_chunk", B0, one),
+        ("prefill", "attn_prefill_mega/four_chunks", B0, four),
+        ("prefill", "attn_prefill_mega/four_chunks/budget_8", 8, four),
+        ("decode", "attn_decode_mega", B0, None)):
+    mine, plain, sc = cs._attn_buffers(kind, dev, rng, weights, p, lens=lens)
+    saved = [b.clone() for b in mine[:-1]]
+    _, err[name] = cs._attn_step(kind, mine, plain, sc, p, fresh, budget,
+                                 flag, 0)
+    for a, b in zip(mine[:-1], saved):
+        a.copy_(b)
+    mega[name] = (lambda kind=kind, mine=mine, budget=budget: cs._attn_launch(
+        kind, fresh.to_words(), mine, p, budget, flag).result())
 runs = []
 for _ in range(n_runs):
-    runs.append({
-        "flash_attention": {"profiler": cs.device_ms(flash, launches=S // C)
-                            / (S // C),
-                            "queued": cs.queued_ms(flash) / (S // C)},
-        "decode_attention": {"profiler": cs.device_ms(decode, launches=1),
-                             "queued": cs.queued_ms(decode)}})
+    r = {"flash_attention": {"profiler": cs.device_ms(flash, launches=S // C)
+                             / (S // C),
+                             "queued": cs.queued_ms(flash) / (S // C)},
+         "decode_attention": {"profiler": cs.device_ms(decode, launches=1),
+                              "queued": cs.queued_ms(decode)}}
+    for name, fn in mega.items():
+        r[name] = {"profiler": cs._named_ms(fn, "attn_mega_kernel", 1)}
+        if "/" not in name:
+            r[name]["events"] = cs.cuda_time_ms(fn, reps=5, warmup=1)
+    runs.append(r)
 print("AB " + json.dumps({"build": build, "err": err, "runs": runs}))
 """
 
@@ -5362,11 +5450,13 @@ print("AB " + json.dumps({"build": build, "err": err, "runs": runs}))
 def ab_attention_main(other: str) -> int:
     """``--ab-attention OTHER_TREE``: B2's and B3's device time per launch
     at phase 9's shapes (8 prefill segments, q [4, 32, 16, 128]; a paged
-    decode of 8 rows over pools [65, 16, 8, 128]) with another tree's
-    kernels and with this tree's, one process each, other, this, this,
-    other; every process builds its tree's sources, checks the kernels
-    against their plain versions and logs the ptxas register and spill
-    lines.  The inputs and timers are this script's."""
+    decode of 8 rows over pools [65, 16, 8, 128]), and M4's and M5's a
+    launch at ``[serve, mega]``'s widths and budget (M4 also at the prompts
+    of ``ATTN_EMIT_LENS``, and at budget 8), with another tree's kernels
+    and with this tree's, one process each, other, this, this, other;
+    every process builds its tree's sources, checks the kernels against
+    their plain versions and logs the ptxas register and spill lines.  The
+    inputs and timers are this script's."""
     import os
     import statistics
 
@@ -5401,8 +5491,15 @@ def ab_attention_main(other: str) -> int:
         for r in res["runs"]:
             log(f"[ab-attention] {arm}: {json.dumps(r)}")
         got[arm] += res["runs"]
-    for name in ("flash_attention", "decode_attention"):
-        for how in ("profiler", "queued"):
+    for name, hows in (("flash_attention", ("profiler", "queued")),
+                       ("decode_attention", ("profiler", "queued")),
+                       ("attn_prefill_mega", ("profiler", "events")),
+                       ("attn_prefill_mega/one_chunk", ("profiler",)),
+                       ("attn_prefill_mega/four_chunks", ("profiler",)),
+                       ("attn_prefill_mega/four_chunks/budget_8",
+                        ("profiler",)),
+                       ("attn_decode_mega", ("profiler", "events"))):
+        for how in hows:
             for arm, rs in got.items():
                 xs = [r[name][how] * 1e3 for r in rs if r[name][how] > 0]
                 if xs:

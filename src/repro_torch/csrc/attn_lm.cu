@@ -54,13 +54,19 @@
 // decision in device memory (two slots, as M1); after a second grid sync
 // every thread reads it.
 //
-// A segment (M4) or a step (M5) is a run of phases, each spread over the
+// A chunk (M4) or a step (M5) is a run of phases, each spread over the
 // grid, separated by grid syncs:
-//   M4: x = E[tok] + pe[pos], 0 past a row's prompt; x Wq^T, x Wk^T, x Wv^T
-//       (k, v straight into k_new/v_new at [start, start + C)); B2's causal
-//       flash body over keys [0, start + C) at q_offset = start; then, for
-//       the rows whose prompt_len - 1 falls in the segment only: o Wo, the
-//       readout E^T and its argmax into out[row, 0].
+//   M4, a chunk of n = min(budget, segments left) segments: x = E[tok] +
+//       pe[pos] for all n PB C rows of the chunk (0 past a row's prompt: x
+//       comes from the prompt alone, never from an earlier segment's output);
+//       x Wq^T, x Wk^T, x Wv^T in one pass over the weights (proj_tc; k, v
+//       straight into k_new/v_new at the segments' positions); then for each
+//       segment in order B2's causal flash body over keys [0, start + C) at
+//       q_offset = start; then, at the chunk's end, for the rows whose
+//       prompt_len - 1 falls in the chunk only: o Wo, the readout E^T and
+//       its argmax into out[row, 0].  The for_save loop's body never
+//       interrupts, so a chunk runs exactly n segments, and its outputs are
+//       whole at the boundary that reads the flag.
 //   M5: live, posc and x from the table; the projections, k and v scattered
 //       straight into the pools at (table[4 + posc / BS], posc % BS) (dead
 //       rows write zeros to null page 0, offset 0, as the chunk path does);
@@ -72,10 +78,16 @@
 // segment, none in most; M5: the live rows); M4/M5 compute o Wo and the
 // readout for those rows only.  The tokens kept are the same.
 //
-// Products, in full f32 with FMAs on the SIMT cores (never TF32: the K/V
-// written must match the chunk path's f32 products within 2e-5), with the
-// weights read through the read-only path:
-// - A B^T (the projections, the readout): a block stages 8 rows of A (up to
+// Products, at f32 accuracy (never plain TF32: the K/V written must match
+// the chunk path's f32 products within 2e-5):
+// - M4's projections (proj_tc), on the tensor cores in three TF32 products
+//   a term (hi hi + hi lo + lo hi, B2's split and mma.sync m16n8k8): a pass
+//   holds kPM = 128 rows of x; a block owns a band of kPN = 96 of Wq/Wk/Wv's
+//   rows (output columns) and streams it once a pass through a kPStages-deep
+//   cp.async pipeline of kPK-column slices of x and the band; 8 warps of 32
+//   x 48 outputs.  A chunk of `rows` rows takes ceil(rows / 128) passes.
+// - A B^T (M5's projections, the readouts), in f32 FMAs on the SIMT cores
+//   with the weights read through the read-only path: a block stages 8 rows of A (up to
 //   4096 columns) in shared memory; a warp takes 4 rows of B, a lane 4
 //   columns of every 128, 32 partial sums a lane, summed across the warp by
 //   B3's transposing butterfly.  The blocks stride over B's 32-row tiles.
@@ -101,18 +113,23 @@
 //   (10240 rows x 4096, 167.8 MB): 0.793 ms at 3.35 TB/s; a round of 8
 //   steps 6.35 ms, bytes-bound (its FLOPs, 0.16 ms a step at 67 TFLOP/s
 //   f32).
-// - M4, counted a chunk of `budget` segments: the flag is read at chunk
-//   boundaries only, so a chunk's outputs must be whole at its end and no
-//   pass over a weight can serve two chunks; within a chunk the segments'
-//   x come from the prompt alone and their readouts can wait to its end,
-//   so a chunk needs one pass over Wq/Wk/Wv (100.7 MB, 30 us) and, when a
-//   row emits in it, one over Wo and E (2.556 GB, 0.763 ms).  The
-//   projections of a segment (PB 4 x 16 rows) are 3.22 GFLOP, 48 us at 67
-//   TFLOP/s f32.  At budget 2, a 4-row prefill of 8 segments whose
-//   emitting rows fall in 2 of its 4 chunks: 1.648 ms, bytes-bound.  This
-//   kernel does more: it reads Wq/Wk/Wv once for every 8 rows of a
-//   segment, and Wo and E once for every segment that holds an emitting
-//   row.
+// - M4, counted a chunk of `budget` segments (chip_smoke.py _attn_bounds):
+//   the flag is read at chunk boundaries only, so a chunk's outputs must be
+//   whole at its end and no pass over a weight can serve two chunks; within
+//   a chunk the segments' x come from the prompt alone and their readouts
+//   can wait to its end, so a chunk needs one pass over Wq/Wk/Wv (100.7 MB,
+//   30 us) and, when a row emits in it, one over Wo and E (2.556 GB, 0.763
+//   ms).  The projections of a segment (PB 4 x 16 rows) are 3.22 GFLOP, 48
+//   us at 67 TFLOP/s f32.  At budget 2, a 4-row prefill of 8 segments whose
+//   emitting rows fall in 2 of its 4 chunks: 1.648 ms, bytes-bound.
+//   What this kernel reads: Wq/Wk/Wv ceil(n PB C / 128) times a chunk (once
+//   at budgets 1 and 2 at PB 4, C 16; 4 times for budget 8's one chunk of
+//   512 rows, where the bound counts once), and Wo and E ceil(e / 8) times a
+//   chunk with e emitting rows (once while PB <= 8), as the bound counts;
+//   x (rows x D) once a band from the L2.  What keeps it off that bound
+//   (PERF.md §6): the kernel shares its 255 registers with B2's body, so
+//   the readout's loop keeps 4 B loads a lane in flight where M5's copy of
+//   the same loop keeps 8, and the projection pass spills.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -147,6 +164,14 @@ constexpr int kMT = 8;        // rows of A a product pass holds
 constexpr int kNR = 4;        // rows of B a warp takes (A B^T)
 static_assert(kMT * kNR == 32, "one partial sum a lane after the butterfly");
 constexpr int kKC = 4096;     // columns of A staged at once
+// M4's projections on the tensor cores (proj_tc)
+constexpr int kPM = 128;      // rows of x a pass holds
+constexpr int kPN = 96;       // Wq/Wk/Wv rows (output columns) a block owns
+constexpr int kPK = 32;       // columns of a pipeline stage
+constexpr int kPStages = 4;
+constexpr int kPPitch = kPK + 4;  // floats: fragment loads hit 32 banks
+constexpr int kWM = 32, kWN = 48;  // a warp's outputs: 4 x 2 warps
+static_assert((kPM / kWM) * (kPN / kWN) == kWarps, "the warps tile the block's outputs");
 constexpr int kMaxRows = 128;             // PB and S
 constexpr int kMaxGrid = 1024;            // the argmax partials' rows
 constexpr int kRegionsSharing = 2;        // as csrc/blur.cu
@@ -167,7 +192,8 @@ struct WoSplit {
   }
 };
 
-// The workspace, in floats: x, q, o ([rows, *]), o Wo's partial sums and
+// The workspace, in floats: x, q, o ([rows, *]: M4's rows are a whole
+// chunk's, min(budget, P / C) PB C; M5's the S slots), o Wo's partial sums and
 // their total ([emit rows, D]), the argmax partials, then ints: the count
 // of emitting rows, the two decision slots, the emitting rows (their rows
 // of x), their out rows, and M5's positions, pages and offsets a slot row.
@@ -441,26 +467,169 @@ __device__ void emit_tokens(const LmArgs& a, const Layout& L, const int* list, i
   readout_argmax(a, L, n, As, tok, grid);
 }
 
-// the projections' stores: q to the workspace; M4's k and v into k_new /
-// v_new at the segment's positions, M5's into the pools at each row's page
-struct PrefillQkv {
+// A rows 0 .. M - 1 times B^T (A [M, K], B [N, K], both row-major, K and
+// their rows 16-byte aligned), at f32 accuracy on the tensor cores:
+// epi(m, n, d[m][n], d[m][n + 1]) for every m < M and even n < N (N even),
+// each pair once.  A work item is a pass's kPM rows by a band's kPN
+// columns; the blocks stride over the items, band-minor.  All threads of
+// all blocks call it; `smem` holds kPStages * (kPM + kPN) * kPPitch floats.
+template <class Epi>
+__device__ void proj_tc(const float* A, int M, const float* B, int N, int K, float* smem,
+                        Epi& epi) {
+  using flash_attn::Split;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;  // the fragments' row group and column
+  const int wm = warp % (kPM / kWM), wn = warp / (kPM / kWM);
+  constexpr int kMi = kWM / 16, kNi = kWN / 8;  // m16 and n8 tiles a warp
+  constexpr int kUnits = kPK / 4;               // 16-byte units of a staged row
+  const int bands = (N + kPN - 1) / kPN, items = (M + kPM - 1) / kPM * bands;
+  const int n_k = (K + kPK - 1) / kPK;
+  float* As = smem;
+  float* Bs = smem + kPStages * kPM * kPPitch;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int m0 = item / bands * kPM, n0 = item % bands * kPN;
+    const int mt = min(kPM, M - m0);
+    // stage s <- columns [kt kPK, (kt + 1) kPK) of A's pass rows and B's
+    // band (rows past M are left as they are: their outputs are never
+    // stored; rows past N read row N - 1; columns past K are zeros)
+    auto load = [&](int s, int kt) {
+      if (kt < n_k) {
+        float* as = As + s * kPM * kPPitch;
+        float* bs = Bs + s * kPN * kPPitch;
+        for (int i = tid; i < (kPM + kPN) * kUnits; i += kThreads) {
+          const int r = i / kUnits, k = kt * kPK + i % kUnits * 4;
+          float* dst;
+          const float* src;
+          if (r < kPM) {
+            if (r >= mt) continue;
+            dst = as + r * kPPitch + i % kUnits * 4;
+            src = A + (long long)(m0 + r) * K + k;
+          } else {
+            dst = bs + (r - kPM) * kPPitch + i % kUnits * 4;
+            src = B + (long long)min(n0 + r - kPM, N - 1) * K + k;
+          }
+          if (k < K)
+            flash_attn::cp_async16(dst, src);
+          else
+            st4(dst, make_float4(0.f, 0.f, 0.f, 0.f));
+        }
+      }
+      flash_attn::cp_async_commit();  // an empty group past K keeps the count
+    };
+    float acc[kMi][kNi][4];
+#pragma unroll
+    for (int i = 0; i < kMi; ++i)
+#pragma unroll
+      for (int j = 0; j < kNi; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    const bool active = wm * kWM < mt;  // warp-uniform: the warp has rows
+    __syncthreads();                    // the last user of the stages is done
+#pragma unroll
+    for (int s = 0; s < kPStages - 1; ++s) load(s, s);
+    for (int kt = 0; kt < n_k; ++kt) {
+      flash_attn::cp_async_wait<kPStages - 2>();
+      __syncthreads();  // stage kt is in; stage kt - 1 is consumed by all
+      load((kt + kPStages - 1) % kPStages, kt + kPStages - 1);
+      if (!active) continue;
+      const float* as = As + (kt % kPStages) * kPM * kPPitch + wm * kWM * kPPitch;
+      const float* bs = Bs + (kt % kPStages) * kPN * kPPitch + wn * kWN * kPPitch;
+      // the stage's sums start from 0 and are added to acc in f32: the
+      // tensor cores' accumulate truncates, and 3 K/8 accumulates in a row
+      // (1536 at K 4096) drift by 2e-4 of the sum where 12 stay near 1e-6
+      float part[kMi][kNi][4];
+#pragma unroll
+      for (int i = 0; i < kMi; ++i)
+#pragma unroll
+        for (int j = 0; j < kNi; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+      // one k-step of 8 at a time (unrolled, the steps' fragments would all
+      // be live at once beside the 96 sums and spill); the three products
+      // term by term over the 12 tiles, so that no product waits on the
+      // one before it
+#pragma unroll 1
+      for (int kk = 0; kk < kPK; kk += 8) {
+        Split af[kMi][4], bf[kNi][2];
+#pragma unroll
+        for (int i = 0; i < kMi; ++i) {
+          const float* p = as + (i * 16 + g) * kPPitch + kk + c;
+          af[i][0] = flash_attn::split(p[0]);
+          af[i][1] = flash_attn::split(p[8 * kPPitch]);
+          af[i][2] = flash_attn::split(p[4]);
+          af[i][3] = flash_attn::split(p[8 * kPPitch + 4]);
+        }
+#pragma unroll
+        for (int j = 0; j < kNi; ++j) {
+          const float* p = bs + (j * 8 + g) * kPPitch + kk + c;
+          bf[j][0] = flash_attn::split(p[0]);
+          bf[j][1] = flash_attn::split(p[4]);
+        }
+#pragma unroll
+        for (int i = 0; i < kMi; ++i)  // small terms first, as mma3
+#pragma unroll
+          for (int j = 0; j < kNi; ++j)
+            flash_attn::mma(part[i][j], af[i][0].lo, af[i][1].lo, af[i][2].lo, af[i][3].lo,
+                            bf[j][0].hi, bf[j][1].hi);
+#pragma unroll
+        for (int i = 0; i < kMi; ++i)
+#pragma unroll
+          for (int j = 0; j < kNi; ++j)
+            flash_attn::mma(part[i][j], af[i][0].hi, af[i][1].hi, af[i][2].hi, af[i][3].hi,
+                            bf[j][0].lo, bf[j][1].lo);
+#pragma unroll
+        for (int i = 0; i < kMi; ++i)
+#pragma unroll
+          for (int j = 0; j < kNi; ++j)
+            flash_attn::mma(part[i][j], af[i][0].hi, af[i][1].hi, af[i][2].hi, af[i][3].hi,
+                            bf[j][0].hi, bf[j][1].hi);
+      }
+#pragma unroll
+      for (int i = 0; i < kMi; ++i)
+#pragma unroll
+        for (int j = 0; j < kNi; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+    }
+    flash_attn::cp_async_wait<0>();  // only empty groups remain
+    if (!active) continue;
+#pragma unroll
+    for (int i = 0; i < kMi; ++i)
+#pragma unroll
+      for (int j = 0; j < kNi; ++j) {
+        const int m = m0 + wm * kWM + i * 16 + g, n = n0 + wn * kWN + j * 8 + 2 * c;
+        if (n >= N) continue;
+        if (m < M) epi(m, n, acc[i][j][0], acc[i][j][1]);
+        if (m + 8 < M) epi(m + 8, n, acc[i][j][2], acc[i][j][3]);
+      }
+  }
+}
+
+// the projections' stores.  M4's chunk: q to the workspace (row m of the
+// chunk: segment m / (PB C), batch row (m / C) % PB, position m % C of the
+// segment); k and v into k_new / v_new at the segments' positions, two
+// neighbouring columns at a time (HQ and KVD are even)
+struct ChunkQkv {
   const LmArgs* a;
   float* q;
-  int start;
-  __device__ void operator()(int m, int n, float v) {
+  int start;  // the chunk's first position
+  __device__ void operator()(int m, int n, float v0, float v1) {
+    const float2 v = make_float2(v0, v1);
     if (n < a->HQ) {
-      q[(long long)m * a->HQ + n] = v;
+      *reinterpret_cast<float2*>(q + (long long)m * a->HQ + n) = v;
       return;
     }
-    const int b = m / a->C, t = m % a->C;
-    const long long row = ((long long)b * a->P + start + t) * a->KVD;
+    const int seg_rows = a->PB * a->C, r = m % seg_rows;
+    const int pos = start + m / seg_rows * a->C + r % a->C;
+    const long long row = ((long long)(r / a->C) * a->P + pos) * a->KVD;
     if (n < a->HQ + a->KVD)
-      a->k_new[row + n - a->HQ] = v;
+      *reinterpret_cast<float2*>(a->k_new + row + n - a->HQ) = v;
     else
-      a->v_new[row + n - a->HQ - a->KVD] = v;
+      *reinterpret_cast<float2*>(a->v_new + row + n - a->HQ - a->KVD) = v;
   }
 };
 
+// M5's: q to the workspace, k and v into the pools at each row's page
 struct DecodeQkv {
   const LmArgs* a;
   float* q;
@@ -479,11 +648,12 @@ struct DecodeQkv {
   }
 };
 
-// M4's segment c
-__device__ void prefill_segment(const LmArgs& a, const Layout& L, int c, char* smem, int* tok,
-                                cg::grid_group& grid) {
-  const int start = c * a.C;
-  const int M = a.PB * a.C;
+// M4's chunk of segments c0 .. c0 + n - 1, first phases: x for every row
+// of the chunk, the chunk's emitting rows, then the projections of all its
+// rows in one pass over Wq/Wk/Wv (ceil(rows / kPM) when rows > kPM)
+__device__ void prefill_chunk_begin(const LmArgs& a, const Layout& L, int c0, int n, char* smem,
+                                    cg::grid_group& grid) {
+  const int start = c0 * a.C, seg_rows = a.PB * a.C, M = n * seg_rows;
   const int D4 = a.D / 4;
   float* x = a.ws + L.x;
   int* ints = reinterpret_cast<int*>(a.ws + L.ints);
@@ -492,7 +662,7 @@ __device__ void prefill_segment(const LmArgs& a, const Layout& L, int c, char* s
   // x = E[tok] + pe[pos], 0 past the row's prompt
   for (long long i = gtid; i < (long long)M * D4; i += gthreads) {
     const int m = (int)(i / D4), d = (int)(i % D4) * 4;
-    const int b = m / a.C, pos = start + m % a.C;
+    const int r = m % seg_rows, b = r / a.C, pos = start + m / seg_rows * a.C + r % a.C;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (pos < a.meta[b * a.meta_stride]) {
       const int t = a.prompt[b * a.prompt_stride + pos];
@@ -500,50 +670,58 @@ __device__ void prefill_segment(const LmArgs& a, const Layout& L, int c, char* s
     }
     st4(x + (long long)m * a.D + d, v);
   }
-  // the rows that emit here: prompt_len - 1 in [start, start + C)
+  // the rows that emit in the chunk: prompt_len - 1 in [start, start + n C),
+  // as rows of the chunk's o, and their out rows
   if (blockIdx.x == 0 && threadIdx.x == 0) {
-    int n = 0;
+    int k = 0;
     for (int b = 0; b < a.PB; ++b) {
-      const int e = a.meta[b * a.meta_stride] - 1;
-      if (e >= start && e < start + a.C) {
-        ints[kIList + n] = b * a.C + (e - start);
-        ints[kIList + a.emit + n] = b;
-        ++n;
+      const int e = a.meta[b * a.meta_stride] - 1 - start;
+      if (e >= 0 && e < n * a.C) {
+        ints[kIList + k] = e / a.C * seg_rows + b * a.C + e % a.C;
+        ints[kIList + a.emit + k] = b;
+        ++k;
       }
     }
-    ints[kICount] = n;
+    ints[kICount] = k;
   }
   grid.sync();
-  const int n = ints[kICount];  // read here: the next segment writes it after 2 syncs
-  // the projections: q to the workspace, k and v into k_new / v_new
-  {
-    PrefillQkv epi{&a, a.ws + L.q, start};
-    for (int m0 = 0; m0 < M; m0 += kMT)
-      gemm_nt(x, a.D, nullptr, m0, min(kMT, M - m0), a.w + a.q0 * a.D, a.D, a.HQ + 2 * a.KVD,
-              a.D, reinterpret_cast<float*>(smem), epi);
+  ChunkQkv epi{&a, a.ws + L.q, start};
+  proj_tc(x, M, a.w + a.q0 * a.D, a.HQ + 2 * a.KVD, a.D, reinterpret_cast<float*>(smem), epi);
+  grid.sync();
+}
+
+// M4's segment c, the j-th of its chunk: B2's causal flash body over keys
+// [0, start + C) at q_offset start, on the segment's rows of q and o
+__device__ void prefill_attend(const LmArgs& a, const Layout& L, int c, int j, char* smem,
+                               cg::grid_group& grid) {
+  const int start = c * a.C;
+  const long long at = (long long)j * a.PB * a.C * a.HQ;
+  const long long qs = a.C * (long long)a.HQ, ks = a.P * (long long)a.KVD;
+  const flash_attn::Args<float> fa{a.ws + L.q + at, qs, a.hd, a.HQ, a.k_new, ks, a.hd, a.KVD,
+                                   a.v_new, ks, a.hd, a.KVD, a.ws + L.o + at, qs, a.hd, a.HQ,
+                                   a.H, a.H / a.KV, a.C, a.P, a.hd, start, 1, -1, a.hpb,
+                                   a.scale, a.kv_vec != 0, a.q_vec != 0};
+  const int gx = (a.C + flash_attn::kRows / a.hpb - 1) / (flash_attn::kRows / a.hpb);
+  const int gy = a.KV * (a.H / a.KV / a.hpb);
+  const int total = gx * gy * a.PB;
+  for (int vb = blockIdx.x; vb < total; vb += gridDim.x) {
+    if (vb != (int)blockIdx.x) __syncthreads();  // the last tile's smem is consumed
+    flash_attn::flash_block<float>(fa, smem, vb % gx, (vb / gx) % gy, vb / (gx * gy));
   }
   grid.sync();
-  // B2's causal flash body over keys [0, start + C) at q_offset start
-  {
-    const long long qs = a.C * (long long)a.HQ, ks = a.P * (long long)a.KVD;
-    const flash_attn::Args<float> fa{a.ws + L.q, qs, a.hd, a.HQ, a.k_new, ks, a.hd, a.KVD,
-                                     a.v_new, ks, a.hd, a.KVD, a.ws + L.o, qs, a.hd, a.HQ,
-                                     a.H, a.H / a.KV, a.C, a.P, a.hd, start, 1, -1, a.hpb,
-                                     a.scale, a.kv_vec != 0, a.q_vec != 0};
-    const int gx = (a.C + flash_attn::kRows / a.hpb - 1) / (flash_attn::kRows / a.hpb);
-    const int gy = a.KV * (a.H / a.KV / a.hpb);
-    const int total = gx * gy * a.PB;
-    for (int vb = blockIdx.x; vb < total; vb += gridDim.x) {
-      if (vb != (int)blockIdx.x) __syncthreads();  // the last tile's smem is consumed
-      flash_attn::flash_block<float>(fa, smem, vb % gx, (vb / gx) % gy, vb / (gx * gy));
-    }
-  }
-  grid.sync();
+}
+
+// M4's chunk, last phase: o Wo and the readout of the chunk's emitting
+// rows, their tokens into out[row, 0]
+__device__ void prefill_chunk_end(const LmArgs& a, const Layout& L, char* smem, int* tok,
+                                  cg::grid_group& grid) {
+  const int* ints = reinterpret_cast<const int*>(a.ws + L.ints);
+  const int n = ints[kICount];  // written before the chunk's first sync
   if (n == 0) return;
   emit_tokens(a, L, ints + kIList, n, reinterpret_cast<float*>(smem), tok, grid);
   if (blockIdx.x == 0 && threadIdx.x < n)
     a.out[ints[kIList + a.emit + threadIdx.x] * a.out_stride] = tok[threadIdx.x];
-  grid.sync();  // the emit list is read before the next segment writes it
+  grid.sync();  // the emit list is read before the next chunk writes it
 }
 
 template <int GT>
@@ -664,12 +842,17 @@ __global__ void __launch_bounds__(kThreads, 1) attn_mega_kernel(const LmArgs a) 
     c.incr_var[kSlotPos] = 1;
     int i = c.saved[kSlotPos] == 1 ? c.var[kSlotPos] : 0;  // resume_value
     c.saved[kSlotPos] = 0;                                  // unsave
+    // M4: the loop below runs min(budget, n_steps - i) segments (its body
+    // never interrupts), so their x and projections come first and their
+    // readouts after it
+    const int i0 = i;
+    if (!kDecode && i < n_steps) prefill_chunk_begin(a, L, i, min(c.budget, n_steps - i), smem, grid);
     while (i < n_steps && c.budget > 0 && c.intr == 0) {
       c.intr = 0;  // clear_intr
       if (kDecode)
         decode_step(a, L, i, smem, tok, grid);  // body_t
       else
-        prefill_segment(a, L, i, smem, tok, grid);  // body_c
+        prefill_attend(a, L, i, i - i0, smem, grid);  // body_c
       c.var[kSlotPos] = i + 1;  // checkpoint(SLOT_POS, i + 1)
       c.saved[kSlotPos] = 1;
       const bool ok = c.intr == 0;  // the body holds no loop: always
@@ -677,6 +860,7 @@ __global__ void __launch_bounds__(kThreads, 1) attn_mega_kernel(const LmArgs a) 
       if (ok) i += 1;
       ++steps;
     }
+    if (!kDecode && i > i0) prefill_chunk_end(a, L, smem, tok, grid);
     const bool completed = i >= n_steps;
     if (completed) {  // clear(SLOT_POS)
       c.var[kSlotPos] = 0;
@@ -742,12 +926,15 @@ void fill_common(LmArgs& a, const int* ctx, const float* w, int D, int vocab, in
 }
 
 size_t gemm_smem() { return (size_t)kMT * kKC * sizeof(float); }
+size_t proj_smem() { return (size_t)kPStages * (kPM + kPN) * kPPitch * sizeof(float); }
 
-// the dynamic shared memory of a launch: the larger of the staged A rows
-// and B2's (M4) or B3's (M5) block
+// the dynamic shared memory of a launch: the largest of the staged A rows,
+// M4's projection stages and B2's block (M4), or of the A rows and B3's
+// block (M5)
 size_t smem_of(bool decode, int hd, int gt, int warps, int keys) {
-  const size_t own = decode ? decode_attn::smem_bytes(gt, warps, hd, keys)
-                            : flash_attn::smem_bytes(hd, 4);
+  size_t own = decode ? decode_attn::smem_bytes(gt, warps, hd, keys)
+                      : flash_attn::smem_bytes(hd, 4);
+  if (!decode && proj_smem() > own) own = proj_smem();
   return own > gemm_smem() ? own : gemm_smem();
 }
 
@@ -791,8 +978,8 @@ int launch(const LmArgs& a, size_t smem, int device, void* stream) {
 
 }  // namespace
 
-// The workspace floats a launch needs: M4 with rows = PB * C and emit = PB,
-// M5 with rows = emit = S.
+// The workspace floats a launch needs: M4 with rows = min(budget, P / C) *
+// PB * C (a chunk's) and emit = PB, M5 with rows = emit = S.
 extern "C" long long attn_lm_workspace(int rows, int emit, int D, int H, int hd) {
   if (rows <= 0 || emit <= 0 || D <= 0 || H <= 0 || hd <= 0) return -1;
   return Layout(rows, emit, D, H * hd).total;
@@ -819,7 +1006,8 @@ extern "C" int attn_prefill_mega(const int* ctx, int* out, long long out_stride,
       P % C || max_ctx <= 0 || hpb < 1 || flash_attn::kRows % hpb || (H / KV) % hpb ||
       budget <= 0 || max_chunks <= 0)
     return (int)cudaErrorInvalidValue;
-  const Layout L(PB * C, PB, D, H * hd);
+  const int rows = (budget < P / C ? budget : P / C) * PB * C;  // a chunk's
+  const Layout L(rows, PB, D, H * hd);
   if (ws_floats < L.total) return (int)cudaErrorInvalidValue;
   LmArgs a = {};
   fill_common(a, ctx, w, D, vocab, H, KV, hd, max_ctx, scale, out, out_stride, ws, budget,
@@ -838,7 +1026,7 @@ extern "C" int attn_prefill_mega(const int* ctx, int* out, long long out_stride,
   a.q_vec = flash_attn::aligned(ws + L.q, qs, hd, (long long)H * hd, 16, 4);
   a.kv_vec = flash_attn::aligned(k_new, ks, hd, (long long)KV * hd, 16, 4) &&
              flash_attn::aligned(v_new, ks, hd, (long long)KV * hd, 16, 4);
-  a.rows = PB * C;
+  a.rows = rows;
   a.emit = PB;
   return launch<false>(a, smem_of(false, hd, 0, 0, 0), device, stream);
 }

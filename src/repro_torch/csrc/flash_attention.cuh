@@ -70,9 +70,12 @@ __device__ __forceinline__ Split split(float x) {
   return {hi, __float_as_uint(x - __uint_as_float(hi))};
 }
 
+// d += a b on one m16n8k8 tile in TF32.  Not volatile: the compiler may
+// schedule the products, and those into one d stay in program order
+// through d itself (M4's projections, csrc/attn_lm.cu, share it)
 __device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
                                     uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
+  asm(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])

@@ -229,6 +229,101 @@ __global__ void __launch_bounds__(kMaxWarps * 32) seq_mega_kernel(const SeqArgs 
   }
 }
 
+// A probe of what an M2/M3 chunk is made of, for the bound of its serial
+// chain (not a kernel of the serving path: chip_smoke.py's [decode]
+// launches it beside M2 and M3).  One block of `warps` warps; thread 0
+// stamps clock64 around `reps` repetitions of each dependent step and
+// writes the cycles of all of them to out[k]:
+//   0 a dependent IMAD (mad.lo.u32)      1 a dependent IADD (add.u32)
+//   2 a SHFL_XOR and the IADD it feeds   3 __syncthreads, the block's warps
+//   4 the read of the mapped host flag (ld.acquire.sys, thread 0 alone)
+//   5 a chunk boundary as seq_mega_kernel runs it (barrier, progress store,
+//     flag read, barrier)
+//   6 M2's step (warp 0's step_row, its sum unused, as M2 leaves it)
+//   7 M3's step (step_row, then token_of feeding the next step's token)
+//   8 token_of alone, each token feeding the next
+// then out[9] the clock64 cycles and out[10] the globaltimer nanoseconds
+// of the whole probe (their ratio converts cycles to time), out[11] a sink
+// that keeps every chain live.
+constexpr int kProbeWords = 12;
+
+struct ProbeArgs {
+  const int* flag;
+  int* progress;
+  int* row;  // d ints of scratch state
+  long long* out;
+  int d, vocab, reps;
+};
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32) seq_probe_kernel(const ProbeArgs a) {
+  __shared__ int decision;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long ns0 = global_ns(), c0 = clock64();
+  long long t[9];
+  uint32_t x = (uint32_t)a.vocab + (uint32_t)tid, y = (uint32_t)a.d | 1u;
+  long long s = clock64();
+#pragma unroll 16
+  for (int i = 0; i < a.reps; ++i) asm volatile("mad.lo.u32 %0, %0, %1, %1;" : "+r"(x) : "r"(y));
+  t[0] = clock64() - s;
+  s = clock64();
+#pragma unroll 16
+  for (int i = 0; i < a.reps; ++i) asm volatile("add.u32 %0, %0, %1;" : "+r"(x) : "r"(y));
+  t[1] = clock64() - s;
+  s = clock64();
+#pragma unroll 16
+  for (int i = 0; i < a.reps; ++i) x += __shfl_xor_sync(0xffffffffu, x, 1);
+  t[2] = clock64() - s;
+  __syncthreads();
+  s = clock64();
+  for (int i = 0; i < a.reps; ++i) __syncthreads();
+  t[3] = clock64() - s;
+  int f = 0;
+  s = clock64();
+  if (tid == 0)
+    for (int i = 0; i < a.reps; ++i) f += load_flag(a.flag);
+  t[4] = clock64() - s;
+  __syncthreads();
+  s = clock64();
+  for (int i = 0; i < a.reps; ++i) {
+    __syncthreads();
+    if (tid == 0) {
+      *reinterpret_cast<volatile int*>(a.progress) = i + 1;
+      const int g = load_flag(a.flag);
+      decision = (g != 0 && i + 1 >= g) ? 1 : 0;
+    }
+    __syncthreads();
+    f += decision;
+  }
+  t[5] = clock64() - s;
+  uint32_t* row = reinterpret_cast<uint32_t*>(a.row);
+  s = clock64();
+  if (warp == 0)
+    for (int i = 0; i < a.reps; ++i) step_row(row, a.d, (uint32_t)i, lane);
+  t[6] = clock64() - s;
+  uint32_t tok = 1u;
+  s = clock64();
+  if (warp == 0)
+    for (int i = 0; i < a.reps; ++i) tok = (uint32_t)token_of(step_row(row, a.d, tok, lane), a.vocab);
+  t[7] = clock64() - s;
+  s = clock64();
+  for (int i = 0; i < a.reps; ++i) tok = (uint32_t)token_of(tok, a.vocab);
+  t[8] = clock64() - s;
+  __syncthreads();
+  const long long c1 = clock64(), ns1 = global_ns();
+  if (tid == 0) {
+    for (int k = 0; k < 9; ++k) a.out[k] = t[k];
+    a.out[9] = c1 - c0;
+    a.out[10] = ns1 - ns0;
+    a.out[11] = (long long)(x + tok) + f;
+  }
+}
+
 template <bool kDecode>
 int launch(const SeqArgs& a, int rows, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -289,4 +384,17 @@ extern "C" int seq_decode_mega(const int* ctx, int* out, long long out_stride, i
   a.progress = progress;
   a.words = words;
   return launch<true>(a, s, device, stream);
+}
+
+// The probe above: out receives kProbeWords device int64s.  Returns a
+// cudaError_t.
+extern "C" int seq_latency_probe(const int* flag, int* progress, int* row, long long* out, int d,
+                                 int vocab, int warps, int reps, int device, void* stream) {
+  if (d <= 0 || vocab <= 0 || warps <= 0 || warps > kMaxWarps || reps <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const ProbeArgs a = {flag, progress, row, out, d, vocab, reps};
+  seq_probe_kernel<<<1, warps * 32, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
 }

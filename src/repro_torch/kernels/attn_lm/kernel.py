@@ -97,6 +97,13 @@ def _check_kv(t: torch.Tensor, what: str, shape, device):
         raise ValueError(f"{what} must be contiguous and 16-byte aligned")
 
 
+def prefill_rows(PB: int, g: Geometry, budget: int) -> int:
+    """The rows of M4's chunk at ``budget``: ``min(budget, segments)``
+    segments of ``PB`` rows x ``block_size`` positions.  M4 projects them
+    together, so its workspace holds a whole chunk's x, q and o."""
+    return min(budget, g.max_ctx // g.block_size) * PB * g.block_size
+
+
 def _workspace(rows: int, emit: int, g: Geometry, device) -> torch.Tensor:
     n = _lib().attn_lm_workspace(rows, emit, g.d_model, g.n_heads,
                                  g.head_dim)
@@ -146,7 +153,7 @@ def attn_prefill_mega(ctx_words, out: torch.Tensor, k_new: torch.Tensor,
                          f"{g.max_ctx}), out and meta with a column")
     hpb = FK.plan(PB, g.n_heads, g.kv_heads, g.block_size, P,
                   g.head_dim).heads_per_block
-    ws = _workspace(PB * g.block_size, PB, g, device)
+    ws = _workspace(prefill_rows(PB, g, budget), PB, g, device)
     # every chunk but the last runs at least one segment
     max_chunks = P // g.block_size + 2
     return launch_persistent(

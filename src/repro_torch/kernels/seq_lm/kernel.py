@@ -167,3 +167,38 @@ def seq_decode_mega(ctx_words, out: torch.Tensor, state: torch.Tensor,
         (words.ctypes.data, out.data_ptr(), out.stride(0), state.data_ptr(),
          state.stride(0), slots.data_ptr(), slots.stride(0), s, d, r,
          int(vocab), int(budget), max_chunks), (out, state, slots), flag)
+
+
+# csrc/seq_lm.cu's seq_latency_probe: the steps it times, in out[] order
+PROBE_STEPS = ("imad", "iadd", "shfl_add", "bar_sync", "flag_read",
+               "boundary", "m2_step", "m3_step", "token_of")
+PROBE_WORDS = len(PROBE_STEPS) + 3
+
+
+def latency_probe(flag, d: int, vocab: int, warps: int,
+                  reps: int = 1024) -> dict:
+    """Time, on the card, the dependent steps an M2/M3 chunk is made of
+    (``seq_latency_probe``: one block of ``warps`` warps, clock64 stamps
+    around ``reps`` repetitions of each): cycles a repetition under each
+    name of ``PROBE_STEPS``, and ``ns_per_cycle``, the probe's globaltimer
+    nanoseconds over its clock64 cycles.  ``flag`` is a ``PreemptFlag``
+    made for a CUDA device; the probe reads its word (0: no exit asked)
+    and writes its progress word.  Not a launch of the serving path: no
+    counter moves."""
+    if not getattr(flag, "device_ptr", 0):
+        raise ValueError("flag must be a PreemptFlag made for a CUDA device")
+    if not 1 <= warps <= 32 or d < 1 or vocab < 1 or reps < 1:
+        raise ValueError(f"warps {warps}, D {d}, vocab {vocab}, reps {reps}")
+    device = torch.device("cuda", torch.cuda.current_device())
+    row = torch.zeros(d, dtype=torch.int32, device=device)
+    out = torch.zeros(PROBE_WORDS, dtype=torch.int64, device=device)
+    fn = _fn("seq_latency_probe", [_P] * 4 + [_I] * 5 + [_P])
+    err = fn(flag.device_ptr, flag.progress_ptr, row.data_ptr(),
+             out.data_ptr(), d, vocab, warps, reps, device.index,
+             torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"seq_latency_probe failed: CUDA error {err}")
+    w = out.cpu().tolist()
+    res = {k: w[i] / reps for i, k in enumerate(PROBE_STEPS)}
+    res["ns_per_cycle"] = w[10] / w[9]
+    return res

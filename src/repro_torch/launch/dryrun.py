@@ -39,6 +39,7 @@ from repro_torch.configs import SHAPES, all_configs, get_config
 from repro_torch.launch import comm_analysis as C
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.sharding import spmd
 from repro_torch.sharding.spmd import mesh_shape
 
 # NVIDIA H100 80GB HBM3 (SXM) per card -- roofline constants: NVIDIA's
@@ -398,6 +399,12 @@ def dryrun_step(cfg, shape, mesh, *, remat: str = "2level",
         fn = S.step_fn(cfg, shape, dmesh, remat=remat, q_chunk=q_chunk,
                        microbatches=microbatches)
         args = distribute(specs, in_sh)
+        # where this torch keeps DTensor's mesh-major order for a dim over
+        # axes out of mesh order (spmd.SPEC_ORDER), the record says so
+        mesh_major = not spmd.SPEC_ORDER and any(
+            sh.out_of_mesh_order
+            for sh in pytree.tree_leaves(in_sh, is_leaf=_is_sharding)
+            if _is_sharding(sh))
         donated = ()
         if donate:
             donated = (0,) if shape.kind == "train" else (
@@ -433,7 +440,7 @@ def dryrun_step(cfg, shape, mesh, *, remat: str = "2level",
         del outs, args
 
     total = arg_bytes + out_bytes + temp - alias_bytes
-    return {
+    rec = {
         "status": "ok",
         "fits_hbm": bool(total < HBM_BYTES),
         # an XLA:CPU artifact of the reference's; nothing to subtract here
@@ -461,6 +468,14 @@ def dryrun_step(cfg, shape, mesh, *, remat: str = "2level",
         },
         "schedule": schedule,
     }
+    if mesh_major:
+        rec["reason"] = (
+            f"torch {torch.__version__}: a dim sharded over mesh axes out of "
+            f"mesh order keeps DTensor's mesh-major shard order (before "
+            f"torch 2.13 its redistribute refuses the placements its own "
+            f"propagation derives from a _StridedShard), so it is gathered "
+            f"whole, not over its FSDP axes alone")
+    return rec
 
 
 def main():

@@ -34,10 +34,15 @@ runs it under one of two bindings, chosen by the mesh:
 
 A dim sharded over several axes, ``("model", "data")``, is split
 major-to-minor in the spec's order on both bindings, as ``shard_map``
-does.  DTensor orders the shards of one dim by mesh-dim index instead
-(data-major on a ``("data", "model")`` mesh): per-device shapes agree,
-block ownership does not.  ``NamedSharding.placements`` hands DTensor its
-own order; nothing in the port reads ownership of such a dim.
+does, and on DTensors too: DTensor orders the shards of one dim by
+mesh-dim index (data-major on a ``("data", "model")`` mesh), so
+``NamedSharding.placements`` gives a mesh dim whose axis the spec puts
+after a later mesh dim's a ``_StridedShard``, which interleaves its shards
+within that axis's.  Block ownership is then the reference's, and moving
+such a dim to the compute layout (``"model"`` alone) gathers over the
+other axes only.  Before torch 2.13 (``SPEC_ORDER`` false) such a dim
+keeps DTensor's mesh-major order: per-device shapes agree, ownership
+does not, and the move gathers the whole dim.
 
 ``all_to_all`` has ``jax.lax.all_to_all``'s semantics.  Tiled: the split
 dim is cut into one block per shard of ``axis``; block ``j`` goes to shard
@@ -59,6 +64,13 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 Axes = Union[None, str, Tuple[str, ...]]
+
+# DTensor takes a ``_StridedShard`` through the model's ops from torch 2.13
+# on; torch 2.11's redistribute planner refuses the placements its own
+# propagation derives from one ((_StridedShard(dim=3, sf=16), Shard(dim=2))
+# on the H100 machine's 2.11.0+cu128, DBRX-132B x decode_32k on 16x16), so
+# there a dim over axes out of mesh order keeps DTensor's mesh-major order
+SPEC_ORDER = tuple(int(v) for v in torch.__version__.split(".")[:2]) >= (2, 13)
 
 
 def _norm(part) -> Axes:
@@ -155,15 +167,54 @@ class NamedSharding:
 
     @property
     def placements(self) -> tuple:
-        """The DTensor placements: ``Shard(d)`` on each mesh dim that
-        shards tensor dim ``d``, ``Replicate()`` on the others and on a
-        mesh dim of size 1 (one shard is the whole; DTensor would refuse
-        to view a size-1 dim "sharded" over it away)."""
+        """The DTensor placements: a shard of tensor dim ``d`` on each mesh
+        dim that shards it, ``Replicate()`` on the others and on a mesh dim
+        of size 1 (one shard is the whole; DTensor would refuse to view a
+        size-1 dim "sharded" over it away).  DTensor splits a dim over its
+        mesh dims in mesh order; where the spec's order differs (a dim over
+        ``("model", "data")`` on a ``("data", "model")`` mesh), a mesh dim
+        whose axis comes after axes of later mesh dims in the spec takes
+        ``_StridedShard(d, split_factor=k)``, ``k`` those axes' sizes: its
+        shards then interleave within theirs, the spec's major-to-minor
+        order, and a redistribute that keeps the major axes' shards
+        gathers over the minor axis alone (the FSDP gather of the expert
+        weights).  Without ``SPEC_ORDER``, ``Shard(d)`` throughout."""
+        from torch.distributed.tensor.placement_types import _StridedShard
+
+        out = []
+        for d, k in self._splits():
+            if d is None:
+                out.append(Replicate())
+            elif k == 1 or not SPEC_ORDER:
+                out.append(Shard(d))
+            else:
+                out.append(_StridedShard(d, split_factor=k))
+        return tuple(out)
+
+    @property
+    def out_of_mesh_order(self) -> bool:
+        """A dim is sharded over axes (of size > 1) that the spec orders
+        otherwise than the mesh."""
+        return any(k > 1 for _, k in self._splits())
+
+    def _splits(self) -> list:
+        """(tensor dim it shards or None, the product of the sizes of the
+        axes of later mesh dims that the spec puts before it) for each mesh
+        axis, in mesh order."""
         sizes = mesh_shape(self.mesh)
-        dim_of = {a: d for d, part in enumerate(self.spec)
+        names = axis_names(self.mesh)
+        where = {a: i for i, a in enumerate(names)}
+        dim_of = {a: (d, spec_axes(part)) for d, part in enumerate(self.spec)
                   for a in spec_axes(part)}
-        return tuple(Shard(dim_of[a]) if a in dim_of and sizes[a] > 1
-                     else Replicate() for a in axis_names(self.mesh))
+        out = []
+        for a in names:
+            if a not in dim_of or sizes[a] == 1:
+                out.append((None, 1))
+                continue
+            d, axes = dim_of[a]
+            out.append((d, math.prod(sizes[b] for b in axes[:axes.index(a)]
+                                     if where[b] > where[a])))
+        return out
 
 
 def with_sharding_constraint(t, sharding: Optional[NamedSharding]):

@@ -236,3 +236,19 @@ def test_attn_kernel_reads_the_serving_table_layout():
         "kTableMeta": A.TABLE_META, "kSlotPos": SLOT_POS}
     assert TAGGED.geometry() == AK.Geometry(32, 67, 4, 1, 8, 4, 16)
     assert TAGGED.table_width == A.TABLE_META + TAGGED.max_ctx // 4
+
+
+@pytest.mark.parametrize("p", [P, TAGGED, A.AttentionParams(
+    d_model=4096, vocab=151936, n_heads=32, kv_heads=8, head_dim=128,
+    block_size=16, max_ctx=128)], ids=["default", "tagged", "serving"])
+def test_attn_prefill_workspace_holds_a_chunk(p):
+    """M4 projects a whole chunk's rows at once, so the wrapper asks
+    ``attn_lm_workspace`` for ``min(budget, segments) x PB x block_size``
+    rows (``prefill_rows``): at budgets 1-8 they grow a segment at a time
+    up to every segment of the context, then stop."""
+    g, PB = p.geometry(), 4
+    segs = g.max_ctx // g.block_size
+    rows = [AK.prefill_rows(PB, g, budget) for budget in range(1, 9)]
+    assert rows == [min(b, segs) * PB * g.block_size for b in range(1, 9)]
+    assert rows == sorted(rows) and len(set(rows)) == min(8, segs)
+    assert AK.prefill_rows(PB, g, 10 ** 6) == segs * PB * g.block_size

@@ -1033,6 +1033,29 @@ def test_cuda_seq_mega_wrappers_reject_bad_inputs(cuda_device):
         QK.seq_decode_mega(words, out.cpu(), state, slots, 101, 1, flag)
 
 
+@pytest.mark.parametrize("warps", [1, 32])
+def test_cuda_seq_latency_probe(cuda_device, warps):
+    """``seq_latency_probe`` (the latencies of M2/M3's serial chain) on
+    the card: every step takes at least a cycle a repetition, a chunk
+    boundary at least its flag read, a barrier and a shuffle-add pair more
+    than an add, and no launch counter moves."""
+    from repro_torch.kernels.seq_lm import kernel as QK
+
+    flag = PreemptFlag(cuda_device)
+    before = QK.MEGA_LAUNCHES.total()
+    got = QK.latency_probe(flag, 384, 51865, warps, reps=256)
+    assert set(got) == set(QK.PROBE_STEPS) | {"ns_per_cycle"}
+    assert all(got[k] >= 1.0 for k in QK.PROBE_STEPS), got
+    assert got["boundary"] >= got["flag_read"] > got["iadd"]
+    assert got["shfl_add"] > got["iadd"]
+    assert 0.1 < got["ns_per_cycle"] < 2.0
+    assert QK.MEGA_LAUNCHES.total() == before
+    with pytest.raises(ValueError, match="warps"):
+        QK.latency_probe(flag, 384, 51865, 33)
+    with pytest.raises(ValueError, match="PreemptFlag"):
+        QK.latency_probe(PreemptFlag(), 384, 51865, 1)
+
+
 @pytest.mark.parametrize("engine", ["pipelined", "megakernel"])
 def test_cuda_serve_decode_streams_equal_oracle(cuda_device, engine):
     """``serve decode`` on cuda:0 (the default), a probe every 2nd round:
@@ -1100,19 +1123,21 @@ ATTN_GEOMETRIES = (AttentionParams(),
                                    max_ctx=32, seed=5))
 
 
-def _attn_inputs(kind, dev, p, seed, PB=3, S=5, R=5):
+def _attn_inputs(kind, dev, p, seed, PB=3, S=5, R=5, lens=None):
     """One attention-LM task's buffers on the card (two sets, the weights
-    shared) and its scalars: ``PB`` prompts of 1 to ``max_ctx`` tokens, or
-    ``S`` slot rows of an ``R``-step round (row 0 live all round, row 1
-    dead, the others at random) over shuffled pages."""
+    shared) and its scalars: ``PB`` prompts of 1 to ``max_ctx`` tokens (or
+    of the lengths ``lens``), or ``S`` slot rows of an ``R``-step round
+    (row 0 live all round, row 1 dead, the others at random) over shuffled
+    pages."""
     from repro_torch.serving import attention as A
 
     rng = np.random.default_rng(seed)
     if kind == "prefill":
+        PB = len(lens) if lens else PB
         prompt = np.zeros((PB, p.max_ctx), np.int32)
         meta = np.zeros((PB, A.META_W), np.int32)
         for r in range(PB):
-            n = int(rng.integers(1, p.max_ctx + 1))
+            n = lens[r] if lens else int(rng.integers(1, p.max_ctx + 1))
             prompt[r, :n] = rng.integers(0, p.vocab, n)
             meta[r, 0] = n
         kv = np.zeros((PB, p.max_ctx, p.kv_heads, p.head_dim), np.float32)
@@ -1180,12 +1205,13 @@ def _attn_step(kind, p, mine, plain, scalars, ctx, budget, flag, boundary):
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
-@pytest.mark.parametrize("budget", [1, 2, 4])
+@pytest.mark.parametrize("budget", [1, 2, 4, 8])
 @pytest.mark.parametrize("p", ATTN_GEOMETRIES, ids=["default", "group8"])
 def test_cuda_attn_mega_matches_plain_version(cuda_device, kind, budget, p):
     """M4/M5 against their plain versions on the card: a whole task in one
     launch, then the flag at every boundary of a fresh task and its
-    resume."""
+    resume.  At budget 8 M4's one chunk (192 rows at the default
+    geometry) takes two passes of its projections."""
     steps = p.max_ctx // p.block_size if kind == "prefill" else 5
     flag = PreemptFlag(cuda_device)
     mine, plain, sc = _attn_inputs(kind, cuda_device, p, seed=budget)
@@ -1197,6 +1223,55 @@ def test_cuda_attn_mega_matches_plain_version(cuda_device, kind, budget, p):
         ctx = ContextRecord.fresh()
         while not ctx.done:
             ctx = _attn_step(kind, p, mine, plain, sc, ctx, budget, flag, k)
+
+
+@pytest.mark.parametrize("budget", [1, 2, 8])
+@pytest.mark.parametrize("lens,chunks", [((3, 5, 9, 16), 1),
+                                         ((5, 20, 40, 60), 4)],
+                         ids=["one_chunk", "four_chunks"])
+def test_cuda_attn_prefill_emitting_rows_across_chunks(cuda_device, lens,
+                                                       chunks, budget):
+    """M4 reads Wo and E at a chunk's end for every row that emits in it: a
+    4-row prefill at the default geometry (8 segments of 8 positions)
+    whose rows emit in one chunk of budget 2, and one whose rows emit in
+    four, against the plain version at every flag boundary."""
+    p = ATTN_GEOMETRIES[0]
+    C = p.block_size * 2
+    assert len({(n - 1) // C for n in lens}) == chunks
+    flag = PreemptFlag(cuda_device)
+    steps = p.max_ctx // p.block_size
+    for k in range(0, -(-steps // budget) + 1):
+        mine, plain, sc = _attn_inputs("prefill", cuda_device, p, seed=k,
+                                       lens=lens)
+        ctx = ContextRecord.fresh()
+        while not ctx.done:
+            ctx = _attn_step("prefill", p, mine, plain, sc, ctx, budget,
+                             flag, k)
+        assert (mine[0][:, 0] >= 0).all()  # every row emitted
+
+
+def test_cuda_attn_workspace_holds_a_chunk(cuda_device):
+    """``attn_lm_workspace`` (the size ``_workspace`` allocates) at M4's
+    chunk rows (``prefill_rows``) grows with the budget up to one chunk of
+    every segment and holds x, q and o for each of those rows."""
+    from repro_torch.kernels.attn_lm import kernel as AK
+
+    lib = AK._lib()
+    for p in ATTN_GEOMETRIES + (AttentionParams(
+            d_model=4096, vocab=151936, n_heads=32, kv_heads=8,
+            head_dim=128, block_size=16, max_ctx=128),):
+        g = p.geometry()
+        HQ = g.n_heads * g.head_dim
+        sizes = []
+        for b in range(1, 9):
+            rows = AK.prefill_rows(4, g, b)
+            n = lib.attn_lm_workspace(rows, 4, g.d_model, g.n_heads,
+                                      g.head_dim)
+            assert n >= rows * (g.d_model + 2 * HQ)
+            assert AK._workspace(rows, 4, g, cuda_device).numel() == n
+            sizes.append(n)
+        assert sizes == sorted(sizes)
+        assert len(set(sizes)) == min(8, g.max_ctx // g.block_size)
 
 
 def test_cuda_attn_mega_wrappers_reject_bad_inputs(cuda_device):

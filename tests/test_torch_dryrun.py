@@ -41,6 +41,7 @@ from repro_torch.launch import dryrun as D  # noqa: E402
 from repro_torch.launch import specs as S  # noqa: E402
 from repro_torch.launch.mesh import make_region_mesh  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
+from repro_torch.sharding import spmd  # noqa: E402
 from repro_torch.sharding.spmd import Mesh, NamedSharding, P  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -230,6 +231,69 @@ def test_moe_expert_parallel_collectives_on_2x4():
         assert C.collective_bytes(log.log).by_op == {
             "all-to-all": 2 * 3 / 4 * slots,
             "all-reduce": 2 * 1 / 2 * (2 * _E + 1) * 4}
+
+
+@pytest.mark.parametrize("order", ["torch", "mesh-major"])
+@pytest.mark.parametrize("kind", ["decode", "train"])
+def test_fsdp_expert_weights_gathered_over_data_only(kind, order,
+                                                     monkeypatch):
+    """A reduced DBRX cell on 2x4: its expert weights are stored FSDP over
+    ``("model", "data")`` on their d_ff dim and computed over "model"
+    alone.  Where DTensor takes the spec's order (``spmd.SPEC_ORDER``,
+    torch 2.13 on), each layer's w1, w3 and w2 is all-gathered once over
+    "data" (the model-sharded slice, ``E x d_model x d_ff / 4``), never
+    over the whole dim: the FSDP amount, (2 - 1) / 2 of those slices a
+    device (the train cell's 2 microbatches gather them once each,
+    without remat; the backward reduce-scatters their gradients).  In
+    DTensor's mesh-major order (older torch, or ``order="mesh-major"``)
+    the dim is gathered whole (ROADMAP §C.4)."""
+    if order == "mesh-major":
+        monkeypatch.setattr(spmd, "SPEC_ORDER", False)
+    cfg = get_config("dbrx-132b").reduced()
+    E, Dm, F = cfg.moe.n_experts, cfg.d_model, cfg.d_ff
+    shape = {"decode": ShapeConfig("decode_32k", 64, 8, "decode"),
+             "train": ShapeConfig("train_4k", 32, 8, "train")}[kind]
+    mb = 2 if kind == "train" else None
+    with D.fake_world(8):
+        mesh = D.device_mesh(_grid((2, 4)))
+        specs = S.input_specs(cfg, shape)
+        args = D.distribute(specs, S.input_shardings(cfg, shape, mesh, specs))
+        fn = S.step_fn(cfg, shape, mesh, remat="none", microbatches=mb)
+        _, log = D.run_logged(fn, args)
+    w = specs[0]["params"] if kind == "train" else specs[0]
+    esize = pytree.tree_leaves(w)[0].element_size()
+    slice_ = E * Dm * F // 4 * esize
+    gathers = [(b, g) for k, b, g in _colls(log.log) if k == "all-gather"]
+    if not spmd.SPEC_ORDER:
+        assert any(b >= E * Dm * F * esize for b, _ in gathers)
+        return
+    n = 3 * cfg.n_layers * (mb or 1)
+    assert gathers.count((slice_, 2)) == n
+    assert not any(b >= E * Dm * F * esize for b, _ in gathers)
+    expert = sum(C.collective_bytes([r]).total_bytes for r in log.log
+                 if r.kind == "all-gather" and not r.done
+                 and C.tensor_bytes(r.results) == slice_ and r.group == 2)
+    assert expert == n * (2 - 1) / 2 * slice_
+
+
+def test_mesh_major_order_before_torch_2_13_says_so(monkeypatch):
+    """Where DTensor cannot take a ``_StridedShard`` (torch before 2.13,
+    ``spmd.SPEC_ORDER`` false), the expert weights keep its mesh-major
+    order, are gathered whole, and the record's ``reason`` says so, with
+    the torch that wrote it: such records compare only with records of
+    the same torch.  In the spec's order a record has no ``reason``, as
+    the reference's."""
+    cfg = get_config("dbrx-132b").reduced()
+    shape = ShapeConfig("decode_32k", 64, 8, "decode")
+    rec = D.dryrun_step(cfg, shape, _grid((2, 4)))
+    assert ("reason" in rec) == (not spmd.SPEC_ORDER)
+    monkeypatch.setattr(spmd, "SPEC_ORDER", False)
+    old = D.dryrun_step(cfg, shape, _grid((2, 4)))
+    assert "mesh-major" in old["reason"]
+    assert f"torch {torch.__version__}" in old["reason"]
+    if "reason" not in rec:
+        ag = lambda r: r["collectives"]["by_op"]["all-gather"]  # noqa: E731
+        assert ag(old) > 4 * ag(rec)
 
 
 def test_fake_world_refuses_a_live_group():

@@ -17,11 +17,6 @@ whisper-tiny.  Caches, logits, the train state and its metrics within
 ``step`` equal.
 """
 import json
-import os
-import socket
-import subprocess
-import sys
-from pathlib import Path
 
 import pytest
 
@@ -30,7 +25,6 @@ torch.set_num_threads(1)  # six test workers share the cores: see ROADMAP §C
 
 import numpy as np  # noqa: E402
 
-ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT_S = 600
 MESHES = ("2x2", "1x4")
 TOL = 1e-5
@@ -42,7 +36,15 @@ CELLS = [(a, k, "tp") for a in ("qwen3-8b", "dbrx-132b", "rwkv6-1.6b",
 CELLS += [("h2o-danube-3-4b", "prefill", "tp"),
           ("h2o-danube-3-4b", "decode", "tp"),
           ("dbrx-132b", "decode", "ep_decode")]
+CELLS += [("granite-20b", k, "tp") for k in ("prefill", "train", "decode")]
+CELLS += [("llava-next-34b", k, "tp") for k in ("prefill", "decode")]
+CELLS += [("mixtral-8x22b", k, "tp") for k in ("prefill", "decode")]
+CELLS += [("phi4-mini-3.8b", k, "tp") for k in ("prefill", "train")]
 CASES = [(a, k, mode, m) for a, k, mode in CELLS for m in MESHES]
+# the multi-pod mesh's three axes, ("pod", "data", "model") = 2x1x2: a
+# dense and a MoE config, every cell kind
+CASES += [(a, k, "tp", "2x1x2") for a in ("qwen3-8b", "dbrx-132b")
+          for k in ("prefill", "train", "decode")]
 
 _WORKER = r"""
 import dataclasses, json, sys
@@ -63,10 +65,10 @@ from repro_torch.models import moe as M
 from repro_torch.models import rwkv as RW
 
 torch.set_num_threads(1)
-rank, world, port, out, cases = sys.argv[1:6]
+rank, world, init, out, cases = sys.argv[1:6]
 rank, world = int(rank), int(world)
-dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                        rank=rank, world_size=world)
+dist.init_process_group("gloo", init_method=init, rank=rank,
+                        world_size=world)
 # prefill runs past the reduced window (16): the ring keeps the last 16
 # tokens rotated by 40 mod 16
 SHAPES = {"train": ShapeConfig("train_4k", 32, 4, "train"),
@@ -133,8 +135,9 @@ try:
         cfg, shape = config(arch), SHAPES[kind]
         specs = S.input_specs(cfg, shape, param_dtype=torch.float32)
         vals = draw(cfg, shape, specs)
-        mesh = init_device_mesh("cpu", tuple(int(v) for v in ms.split("x")),
-                                mesh_dim_names=("data", "model"))
+        dims = tuple(int(v) for v in ms.split("x"))
+        mesh = init_device_mesh("cpu", dims, mesh_dim_names=(
+            ("pod", "data", "model") if len(dims) == 3 else ("data", "model")))
         fn = S.step_fn(cfg, shape, mesh, remat="2level", microbatches=2)
         args = D.distribute(copy(vals), S.input_shardings(cfg, shape, mesh,
                                                           specs))
@@ -170,33 +173,16 @@ finally:
 """
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Every case, run once by 4 gloo ranks: rank 0's gathered outputs
-    and the plain step's, with what each run did."""
-    out = str(tmp_path_factory.mktemp("dtensor_step") / "runs")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(r), "4",
-                               port, out, json.dumps(CASES)], env=env,
-                              cwd=ROOT, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for r in range(4)]
-    logs = []
-    try:
-        for proc in procs:
-            o, e = proc.communicate(timeout=TIMEOUT_S)
-            logs.append(o[-3000:] + e[-3000:])
-    finally:
-        for proc in procs:
-            proc.kill()
-    assert [p.returncode for p in procs] == [0] * 4, "\n".join(logs)
+    """Every case, run once by 4 gloo ranks (meeting through a file store,
+    ``torch_gloo.run_ranks``): rank 0's gathered outputs and the plain
+    step's, with what each run did."""
+    from torch_gloo import run_ranks
+
+    tmp = tmp_path_factory.mktemp("dtensor_step")
+    out = str(tmp / "runs")
+    run_ranks(_WORKER, [out, json.dumps(CASES)], tmp / "gloo", TIMEOUT_S)
     with open(out + ".json") as f:
         meta = json.load(f)
     return dict(np.load(out + ".npz")), meta

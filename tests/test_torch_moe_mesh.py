@@ -20,7 +20,6 @@ The ``torch.distributed`` binding runs once: 4 spawned CPU processes with
 """
 import dataclasses
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -46,6 +45,7 @@ CFS = (1.0, 8.0)           # 1.0 drops tokens at these sizes, 8.0 none
 E, K, D, F = 8, 2, 16, 32
 DIST_MESHES = ((2, 2), (1, 4))
 TIMEOUT_S = 240
+GLOO_TIMEOUT_S = 600       # 4 ranks on a host that six test workers share
 
 _REF_CHILD = r"""
 import sys
@@ -88,9 +88,9 @@ from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models import moe as M
 torch.set_num_threads(1)
-rank, world, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                        rank=rank, world_size=world)
+rank, world, init = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+dist.init_process_group("gloo", init_method=init, rank=rank,
+                        world_size=world)
 try:
     inp = dict(np.load(sys.argv[4]))
     p = {k: torch.tensor(inp[k]) for k in ("router", "w1", "w3", "w2")}
@@ -359,34 +359,17 @@ def test_step_fn_train_step_over_mesh_matches_unsharded(mixtral):
         _close(a, b)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def test_distributed_binding_matches_over_gloo(inputs, ref_out):
     """The ``torch.distributed`` binding: 4 ranks under gloo, meshes 2x2
-    and 1x4 (``init_device_mesh``), the same numbers as above."""
+    and 1x4 (``init_device_mesh``), the same numbers as above.  The ranks
+    meet through a file store (``torch_gloo.run_ranks``)."""
+    from torch_gloo import run_ranks
+
     path, inp = inputs
     out = path.with_name("dist_out.npz")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    port = str(_free_port())
     args = [str(path), str(out), ",".join(map(_tag, DIST_MESHES)),
             ",".join(map(str, CFS))]
-    procs = [subprocess.Popen([sys.executable, "-c", _DIST_WORKER, str(r),
-                               "4", port] + args, env=env, cwd=ROOT,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for r in range(4)]
-    logs = []
-    try:
-        for proc in procs:
-            o, e = proc.communicate(timeout=TIMEOUT_S)
-            logs.append(o[-2000:] + e[-2000:])
-    finally:
-        for proc in procs:
-            proc.kill()
-    assert [p.returncode for p in procs] == [0] * 4, "\n".join(logs)
+    run_ranks(_DIST_WORKER, args, path.with_name("gloo"), GLOO_TIMEOUT_S)
     x, p = torch.tensor(inp["x"]), _params(inp)
     for rank in range(4):  # every rank returns the global result
         _check_dist(dict(np.load(f"{out}.{rank}.npz")), x, p, ref_out)

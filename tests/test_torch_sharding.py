@@ -258,3 +258,56 @@ def test_named_shard_shapes_match_reference_and_dtensor(port_args):
     finally:
         dist.destroy_process_group()
     assert len(pairs) > 100
+
+
+@pytest.mark.parametrize("dims,names,spec", [
+    ((2, 4), ("data", "model"), P(None, None, ("model", "data"))),
+    ((2, 4), ("data", "model"), P(None, ("model", "data"), None)),
+    ((2, 4), ("data", "model"), P(("data", "model"), None)),
+    ((2, 2, 2), ("pod", "data", "model"), P(None, ("model", "pod", "data"))),
+    ((2, 2, 2), ("pod", "data", "model"), P(("model", "data"), "pod")),
+    ((2, 1, 2), ("pod", "data", "model"), P(None, ("model", "pod", "data"))),
+], ids=["w1-2x4", "w2-2x4", "mesh-order-2x4", "w1-2x2x2", "mixed-2x2x2",
+        "w1-2x1x2"])
+@pytest.mark.parametrize("order", ["torch", "mesh-major"])
+def test_multi_axis_dims_are_placed_in_the_spec_order(dims, names, spec, order,
+                                                      monkeypatch):
+    """A dim sharded over several axes is split major-to-minor in the
+    spec's order, as the reference's ``shard_map`` does and as the port's
+    single-process binding does (``spmd._block``, held to it by
+    ``test_torch_moe_mesh.py``): ``named().placements`` hands DTensor
+    ``_StridedShard``s where the mesh order differs, and every mesh
+    coordinate's DTensor shard is the block ``_block`` gives it.  That
+    holds where DTensor takes a ``_StridedShard`` (``spmd.SPEC_ORDER``,
+    torch 2.13 on); on older torch, or with ``order="mesh-major"``, the
+    placements are ``Shard``s and each shard is the block of the spec with
+    every dim's axes in mesh order, DTensor's own (ROADMAP §C.4)."""
+    from torch.distributed.tensor._utils import \
+        _compute_local_shape_and_global_offset
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.spmd import _block, spec_axes
+
+    if order == "mesh-major":
+        monkeypatch.setattr(spmd, "SPEC_ORDER", False)
+    sizes = dict(zip(names, dims))
+    mesh = make_region_mesh(np.full(dims, "cpu", dtype=object), names)
+    pl = NamedSharding(mesh, spec).placements
+    shape = (4, 16, 32)[3 - len(spec):]
+    full = torch.arange(int(np.prod(shape))).reshape(shape)
+    mixed = any(list(a) != sorted(a, key=names.index)
+                for a in map(spec_axes, spec))
+    assert any(isinstance(p_, _StridedShard) for p_ in pl) == (
+        mixed and spmd.SPEC_ORDER)
+    if not spmd.SPEC_ORDER:
+        spec = P(*(tuple(sorted(spec_axes(x), key=names.index)) or None
+                   for x in spec))
+    for coord in np.ndindex(*dims):
+        local, offset = _compute_local_shape_and_global_offset(
+            shape, dims, list(coord), pl)
+        want = _block(full, spec, dict(zip(names, coord)), sizes)
+        got = full
+        for d, (n, o) in enumerate(zip(local, offset)):
+            got = got.narrow(d, o, n)
+        assert torch.equal(got, want), (coord, pl)
