@@ -154,8 +154,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    megakernel mode (images equal the plain version, M1 launched, B1
    never); (3) tokens/s and TTFT p50/p99 at the main shape without probes,
    pipelined, megakernel, megakernel, pipelined; (4) M2/M3's device time a
-   launch and a chunk beside the plain version and the bound, and the host
-   time from a flag write to a running M3 launch's exit;
+   launch and a chunk at budgets 1 and 2 beside the plain version, the
+   bound and the floor of one flag read a chunk, ``seq_latency_probe``'s
+   terms (the earlier design's chunk part by part among them), and for
+   each a flag write into a running launch (exit at most 2 chunks past the
+   progress the host read, the host time to the exit) and a launch armed
+   before it starts (exit at boundary 1);
 6. flash check: the flash-attention kernel against its plain version at the
    serving prefill shape (q [4, 32, 16, 128], k/v [4, 8, 128, 128] strided
    as the prefill passes them), q_offset 0 / 64 / 112, then at the edges of
@@ -324,6 +328,11 @@ after a warm-up in each: host time per chunk, urgent service and wall
 time, then each tree's median and range.  ``python3 chip_smoke.py
 --ab-attention OTHER_TREE`` does the same for B2's and B3's device time per
 launch at phase 9's shapes, and logs each tree's register and spill lines.
+``python3 chip_smoke.py --ab-seq OTHER_TREE`` does the same for M2's and
+M3's device time per launch at ``[decode]``'s shapes (a 128-token prompt;
+32 slots, an 8-token round) at budgets 1 and 2, each tree's whole task held
+against the plain version bitwise, and for the tokens/s and TTFT of
+``[decode]``'s A/B workload in megakernel mode without probes.
 ``python3 chip_smoke.py --dryrun`` runs the ``[dryrun]`` phase alone.
 """
 from __future__ import annotations
@@ -429,9 +438,13 @@ DECODE_PREEMPT_EVERY = 3
 DECODE_AB = ("pipelined", "megakernel", "megakernel", "pipelined")
 SEQ_BUDGETS = (1, 2, 4)
 SEQ_RANDOM_TASKS = 3        # random-boundary tasks a kernel at the main shapes
-SEQ_LAG_STEPS = 200_000     # M3 steps of the flag-lag launch (never reached)
+SEQ_LAG_STEPS = 200_000     # M2/M3 steps of the flag-lag launch (never reached)
 SEQ_LAG_AT = 2000           # its progress when the host writes the flag
 SEQ_LAG_TRIALS = 5
+# M2/M3's times: budget 1 (the main path with probes, a step a chunk) and 2
+# (the main path without them); --ab-seq times both in two trees
+SEQ_TIME_BUDGETS = (1, 2)
+SEQ_AB_DECODE_RUNS = 2      # timed serve_decode runs a process of --ab-seq
 
 # the attention LM at Qwen3-8B's attention widths (src/repro/configs/qwen3_8b.py)
 SERVING = {"lm": "attention", "d_model": 4096, "vocab_size": 151936,
@@ -3698,12 +3711,72 @@ def _blur_subcommands(dev) -> dict:
     return out
 
 
+def _seq_lag(kernel: str, dev, rng, flag, fresh) -> dict:
+    """A flag write landing in a running M2/M3 launch at budget 1 (a
+    ``SEQ_LAG_STEPS``-step task, every M3 row live all along): the host
+    writes the flag once the launch has published ``SEQ_LAG_AT`` chunks,
+    reads the progress word right after and spins on the launch's event, so
+    the time is the card's answer, not a poll sleep; the exit must come at
+    most 2 chunks past the progress read.  Then the launch armed before it
+    starts must stop at boundary 1."""
+    d, v = SURROGATE["d_model"], SURROGATE["vocab"]
+    shape = (dict(prompt_len=SEQ_LAG_STEPS) if kernel == "SeqPrefill" else
+             dict(slots=DECODE_MAIN["slots"], steps=SEQ_LAG_STEPS))
+    mine, _, sc = _seq_buffers(kernel, dev, rng, d, v, **shape)
+    if kernel == "SeqDecode":
+        mine[2][:, 0] = 1                      # every row live all along
+        mine[2][:, 1] = SEQ_LAG_STEPS
+    tag = "M2" if kernel == "SeqPrefill" else "M3"
+    lags = []
+    for _ in range(SEQ_LAG_TRIALS):
+        launch = _seq_launch(kernel, fresh.to_words(), mine, sc, 1, flag)
+        if not _wait(lambda: flag.progress() >= SEQ_LAG_AT, timeout=30):
+            raise AssertionError(f"[decode] the {tag} lag launch never "
+                                 f"progressed")
+        flag.write(1)
+        t_w = time.perf_counter()
+        at = flag.progress()
+        while not launch.query():
+            pass
+        t_x = time.perf_counter()
+        _, n = launch.result()
+        flag.clear()
+        lags.append(((t_x - t_w) * 1e6, n - at))
+        if not 0 <= n - at <= 2 or n >= SEQ_LAG_STEPS:
+            raise AssertionError(f"[decode] {tag}: the flag exit came "
+                                 f"{n - at} chunks after the write ({n} "
+                                 f"run)")
+    # the same launch armed before it starts: its call, one chunk and the
+    # event, with no flag write in flight
+    armed = []
+    for _ in range(SEQ_LAG_TRIALS):
+        flag.write(1)
+        t0 = time.perf_counter()
+        launch = _seq_launch(kernel, fresh.to_words(), mine, sc, 1, flag)
+        while not launch.query():
+            pass
+        armed.append((time.perf_counter() - t0) * 1e6)
+        if launch.result()[1] != 1:
+            raise AssertionError(f"[decode] an armed {tag} launch ran past "
+                                 f"boundary 1")
+        flag.clear()
+    log(f"[decode] a flag write into a running {tag} launch ({shape}, "
+        f"budget 1): host write -> the launch's event seen "
+        f"{[round(t, 3) for t, _ in lags]} us, chunks after the device's "
+        f"published progress {[c for _, c in lags]} (at most 2); a launch "
+        f"armed before it starts: call -> its event seen "
+        f"{[round(t, 3) for t in armed]} us, exit at boundary 1")
+    return {"flag_to_exit_us": [t for t, _ in lags],
+            "chunks_past_progress": [c for _, c in lags]}
+
+
 def _seq_times(dev, rng, launches: dict, errs: dict) -> list:
     """M2/M3's device time per launch and per chunk at the main path's
-    shapes and budget (a 128-token prompt, 128 chunks; a 32-slot round of 8
-    steps, 8 chunks), the plain version's (the host loop's torch kernels),
-    and the bound; then the host time from a flag write to a running
-    launch's exit."""
+    shapes (a 128-token prompt: 128 chunks at budget 1; a 32-slot round of
+    8 steps: 8 chunks) at ``SEQ_TIME_BUDGETS``, the plain version's (the
+    host loop's torch kernels), the bound, and the floor of one flag read
+    a chunk, with ``seq_latency_probe``'s terms; then a flag write's exit
+    lag on each."""
     from repro_torch.core.context import ContextRecord
     from repro_torch.core.preemption import PreemptFlag, make_megakernel
     from repro_torch.controller.kernels import get_kernel
@@ -3719,29 +3792,38 @@ def _seq_times(dev, rng, launches: dict, errs: dict) -> list:
             ("SeqDecode", "seq_decode_mega",
              dict(slots=DECODE_MAIN["slots"],
                   steps=DECODE_MAIN["round_tokens"]))):
+        tag = "M2" if kernel == "SeqPrefill" else "M3"
         mine, plain, sc = _seq_buffers(kernel, dev, rng, d, v, **shape)
         kd = get_kernel(kernel)
         _, ints, floats = kd.bundle(*plain, **sc).padded()
         entry = make_megakernel(kd)
         steps = shape.get("prompt_len", shape.get("steps"))
         rows = shape.get("slots", 1)
-
-        def mega(kernel=kernel, mine=mine, sc=sc):
-            return _seq_launch(kernel, fresh.to_words(), mine, sc, 1, flag)
+        geo = QK.plan(rows, d)
 
         def host_loop(entry=entry, plain=plain, ints=ints, floats=floats):
             entry(fresh, plain, ints, floats, 1, flag)
 
         dev_ms, hows = {}, {}
-        for arm, fn, key, n in (("kernel", mega, "seq_mega_kernel", 1),
-                                ("plain", host_loop, None, None)):
-            dev_ms[arm] = (_named_ms(fn, key, n) if key else
-                           device_ms(fn))
-            hows[arm] = "torch.profiler"
-            if dev_ms[arm] <= 0.0:
-                dev_ms[arm] = queued_ms(fn, reps=5)
-                hows[arm] = "queued behind a spin kernel"
-        wall_ms = cuda_time_ms(mega, reps=20)
+        for budget in SEQ_TIME_BUDGETS:
+            def mega(kernel=kernel, mine=mine, sc=sc, budget=budget):
+                return _seq_launch(kernel, fresh.to_words(), mine, sc,
+                                   budget, flag)
+
+            # the median of 3 profiler windows (a single window once read
+            # half of M2's launch on the H100)
+            dev_ms[budget] = sorted(_named_ms(mega, "seq_mega_kernel", 1)
+                                    for _ in range(3))[1]
+            hows[budget] = "torch.profiler, median of 3 windows"
+            if dev_ms[budget] <= 0.0:
+                dev_ms[budget] = queued_ms(mega, reps=5)
+                hows[budget] = "queued behind a spin kernel"
+            if budget == 1:
+                wall_ms = cuda_time_ms(mega, reps=20)
+        plain_ms, plain_how = device_ms(host_loop), "torch.profiler"
+        if plain_ms <= 0.0:
+            plain_ms, plain_how = queued_ms(host_loop, reps=5), \
+                "queued behind a spin kernel"
         # the bytes one launch must move: the state read and written once,
         # the prompt (M2) or the slots table and the round's tokens (M3)
         state_b = rows * d * 4 * 2
@@ -3751,44 +3833,56 @@ def _seq_times(dev, rng, launches: dict, errs: dict) -> list:
         # 7 int32 operations an element a step (2 products, the injected
         # term's product, 3 sums, the row sum), at the table's f32 rate
         ops_ms = 7 * rows * d * steps / F32_OPS_PER_S * 1e3
-        step_ms = state_b / HBM_BYTES_PER_S * 1e3
-        # the serial chain at budget 1 (a step a chunk), each term at its
-        # latency as the probe measured it on this card in this run: the
-        # chunk's flag read and its 2 barriers, which the chunk semantics
-        # put between two steps, and the step's dependent part with the
-        # state in registers (M2: the element's multiply-add; M3: the
-        # token's multiply-add, a lane's d/32 adds, 5 shuffle-add pairs
-        # and the token's own arithmetic, which feeds the next step)
+        # the floor at budget 1: a chunk consumes one flag read issued no
+        # earlier than the boundary before it, so the chunks follow one
+        # another no faster than that read, as this design issues it
+        # (ld.relaxed.sys), measured by the probe on this card in this run
         pr = QK.latency_probe(flag, d, v, warps=min(rows, 32))
-        step_cyc = (pr["imad"] if kernel == "SeqPrefill" else
-                    pr["imad"] + d // 32 * pr["iadd"] + 5 * pr["shfl_add"]
-                    + pr["token_of"])
-        chunk_cyc = pr["flag_read"] + 2 * pr["bar_sync"] + step_cyc
         us = lambda c: c * pr["ns_per_cycle"] * 1e-3  # noqa: E731
-        chain_ms = steps * us(chunk_cyc) * 1e-3
-        chunk_us = dev_ms["kernel"] / steps * 1e3
-        body = "m2_step" if kernel == "SeqPrefill" else "m3_step"
-        log(f"[decode] {name} ({'M2' if kernel == 'SeqPrefill' else 'M3'}) "
-            f"{shape}, budget 1 ({steps} chunks a launch): "
-            f"{dev_ms['kernel']:.6f} ms device a launch ({hows['kernel']}), "
-            f"{chunk_us:.4f} us a chunk; wall (CUDA "
-            f"events, back to back) {wall_ms:.6f} ms a launch; the plain "
-            f"version (host loop, torch kernels) {dev_ms['plain']:.6f} ms "
-            f"device a task ({hows['plain']}); bound {max(bytes_ms, ops_ms) * 1e3:.4f} "
-            f"us a launch (bytes {bytes_ms * 1e3:.4f}, operations "
-            f"{ops_ms * 1e3:.4f}); the state's bytes a step "
-            f"{step_ms * 1e3:.4f} us")
+        floor_ms = steps * us(pr["flag_relaxed"]) * 1e-3
+        chunk_us = {b: dev_ms[b] / -(-steps // b) * 1e3 for b in dev_ms}
+        log(f"[decode] {name} ({tag}) {shape}, {geo['compute_warps']} "
+            f"compute warps of {geo['rows_per_warp']} rows and the watcher, "
+            f"state {'in shared memory' if geo['resident'] else 'in global memory'}: "
+            + "; ".join(f"budget {b}: {dev_ms[b]:.6f} ms device a launch "
+                        f"({hows[b]}), {chunk_us[b]:.4f} us a chunk"
+                        for b in dev_ms)
+            + f"; wall (CUDA events, back to back, budget 1) "
+            f"{wall_ms:.6f} ms a launch; the plain version (host loop, "
+            f"torch kernels) {plain_ms:.6f} ms device a task ({plain_how}); "
+            f"bound {max(bytes_ms, ops_ms) * 1e3:.4f} us a launch (bytes "
+            f"{bytes_ms * 1e3:.4f}, operations {ops_ms * 1e3:.4f}); floor "
+            f"(one flag read a chunk, {us(pr['flag_relaxed']):.4f} us) "
+            f"{floor_ms * 1e3:.4f} us a launch at budget 1, "
+            f"{floor_ms / dev_ms[1] * 100:.2f} % of its time")
         log(f"[decode] {name} latency probe (seq_latency_probe, "
-            f"{min(rows, 32)} warps, measured, cycles a repetition at "
+            f"{min(rows, 32)} warps, measured, us a repetition at "
             f"{pr['ns_per_cycle']:.6f} ns a cycle): "
-            + ", ".join(f"{k} {pr[k]:.2f}" for k in QK.PROBE_STEPS)
-            + f"; serial chain {chunk_cyc:.2f} cycles = {us(chunk_cyc):.4f} "
-            f"us a chunk, {chain_ms * 1e3:.4f} us a launch "
-            f"({chain_ms / dev_ms['kernel'] * 100:.2f} % of its time); of a "
-            f"measured chunk ({chunk_us:.4f} us) the flag read is "
-            f"{us(pr['flag_read']):.4f} us ({us(pr['flag_read']) / chunk_us * 100:.2f} %), "
-            f"the probe's boundary {us(pr['boundary']):.4f} us and step "
-            f"{us(pr[body]):.4f} us")
+            + ", ".join(f"{k} {us(pr[k]):.4f}" for k in QK.PROBE_STEPS))
+        if kernel == "SeqPrefill":
+            # the earlier design's budget-1 chunk, part by part: its
+            # boundary (barrier, progress store, ld.acquire.sys, barrier),
+            # its step with the state in global memory, and what the two
+            # left uncovered: the for_save control, the dependent prompt
+            # read, and what the acquire read cost the step after it
+            rest = us(pr["parent_chunk"] - pr["boundary"] - pr["m2_step"])
+            log(f"[decode] the earlier M2 chunk (probe): "
+                f"{us(pr['parent_chunk']):.4f} us = boundary "
+                f"{us(pr['boundary']):.4f} (its flag read "
+                f"{us(pr['flag_read']):.4f}) + step in global memory "
+                f"{us(pr['m2_step']):.4f} + {rest:.4f} more, of which the "
+                f"for_save control {us(pr['parent_control']):.4f}, the "
+                f"dependent prompt read {us(pr['prompt_load']):.4f}, and "
+                f"{us(pr['parent_chunk'] - pr['boundary'] - pr['parent_chunk_noflag']):.4f} "
+                f"that the boundary adds to the chunk without it "
+                f"({us(pr['parent_chunk_noflag']):.4f}); this design: control "
+                f"{us(pr['control']):.4f}, step in shared memory "
+                f"{us(pr['m2_step_resident']):.4f}, a read with that step "
+                f"under it {us(pr['flag_overlap']):.4f} (the read alone "
+                f"{us(pr['flag_relaxed']):.4f}), a barrier with a read in "
+                f"flight {us(pr['bar_after_read']):.4f}, fence.sc.sys after "
+                f"the progress store {us(pr['fence_sys']):.4f} (not taken: "
+                f"over 0.2 us), a device-memory word {us(pr['device_read']):.4f}")
         records.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/seq_lm.cu",
@@ -3798,57 +3892,16 @@ def _seq_times(dev, rng, launches: dict, errs: dict) -> list:
                               f", src/repro/serving/kernels.py, not a "
                               f"pallas_call)",
             "launches": launches[kernel], "max_abs_err": errs[kernel],
-            "ms": dev_ms["kernel"], "per": f"launch of {steps} chunks",
-            "ms_per_chunk": dev_ms["kernel"] / steps,
-            "plain_ms": dev_ms["plain"],
+            "ms": dev_ms[1], "per": f"launch of {steps} chunks",
+            "ms_per_chunk": dev_ms[1] / steps,
+            **{f"ms_budget_{b}": dev_ms[b] for b in dev_ms if b != 1},
+            "floor_ms": floor_ms,
+            "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None})
-
-    # a flag write landing in a running M3 launch: the host spins on the
-    # launch's event, so the time is the card's answer, not a poll sleep
-    mine, _, sc = _seq_buffers("SeqDecode", dev, rng, d, v,
-                               slots=DECODE_MAIN["slots"],
-                               steps=SEQ_LAG_STEPS)
-    mine[2][:, 0] = 1                      # every row live all along
-    mine[2][:, 1] = SEQ_LAG_STEPS
-    lags = []
-    for _ in range(SEQ_LAG_TRIALS):
-        launch = _seq_launch("SeqDecode", fresh.to_words(), mine, sc, 1, flag)
-        if not _wait(lambda: flag.progress() >= SEQ_LAG_AT, timeout=30):
-            raise AssertionError("[decode] the lag launch never progressed")
-        flag.write(1)
-        t_w = time.perf_counter()
-        at = flag.progress()
-        while not launch.query():
-            pass
-        t_x = time.perf_counter()
-        _, n = launch.result()
-        flag.clear()
-        lags.append(((t_x - t_w) * 1e6, n - at))
-        if not 0 <= n - at <= 2 or n >= SEQ_LAG_STEPS:
-            raise AssertionError(f"[decode] the flag exit came {n - at} "
-                                 f"chunks after the write ({n} run)")
-    # the same launch armed before it starts: its call, one chunk and the
-    # event, with no flag write in flight
-    armed = []
-    for _ in range(SEQ_LAG_TRIALS):
-        flag.write(1)
-        t0 = time.perf_counter()
-        launch = _seq_launch("SeqDecode", fresh.to_words(), mine, sc, 1, flag)
-        while not launch.query():
-            pass
-        armed.append((time.perf_counter() - t0) * 1e6)
-        if launch.result()[1] != 1:
-            raise AssertionError("[decode] an armed launch ran past boundary 1")
-        flag.clear()
-    log(f"[decode] a flag write into a running M3 launch (32 slots, budget "
-        f"1): host write -> the launch's event seen "
-        f"{[round(t, 3) for t, _ in lags]} us, chunks after the device's "
-        f"published progress {[c for _, c in lags]}; a launch armed before "
-        f"it starts: call -> its event seen {[round(t, 3) for t in armed]} "
-        f"us")
-    records[-1]["flag_to_exit_us"] = [t for t, _ in lags]
+    for kernel, rec in zip(("SeqPrefill", "SeqDecode"), records):
+        rec.update(_seq_lag(kernel, dev, rng, flag, fresh))
     return records
 
 
@@ -5509,6 +5562,131 @@ def ab_attention_main(other: str) -> int:
     return 0
 
 
+_AB_SEQ_WORKER = r"""
+import json, sys
+tree, n_runs = sys.argv[1], int(sys.argv[2])
+import numpy as np
+import torch
+import chip_smoke as cs                 # this tree's inputs and timers
+sys.path.insert(0, tree + "/src")       # the tree's kernels, ahead of ours
+from repro_torch.kernels import native
+from repro_torch.kernels.seq_lm import kernel as QK
+from repro_torch.core.context import ContextRecord
+from repro_torch.core.preemption import PreemptFlag
+assert QK.__file__.startswith(tree)
+native.load_libraries(("seq_lm", "preempt_flag"))
+build = [ln.strip() for ln in native.build_info["seq_lm"]["log"].splitlines()
+         if "registers" in ln or "spill" in ln]
+dev = torch.device("cuda", 0)
+rng = np.random.default_rng(32)
+d, v = cs.SURROGATE["d_model"], cs.SURROGATE["vocab"]
+flag, fresh = PreemptFlag(dev), ContextRecord.fresh()
+cases, err = {}, {}
+for kernel, name, shape in (
+        ("SeqPrefill", "seq_prefill_mega",
+         dict(prompt_len=cs.DECODE_MAIN["prompt_len"])),
+        ("SeqDecode", "seq_decode_mega",
+         dict(slots=cs.DECODE_MAIN["slots"],
+              steps=cs.DECODE_MAIN["round_tokens"]))):
+    for budget in cs.SEQ_TIME_BUDGETS:
+        key = f"{name}/budget_{budget}"
+        mine, plain, sc = cs._seq_buffers(kernel, dev, rng, d, v, **shape)
+        saved = [b.clone() for b in mine]
+        # a whole task against the plain version, bitwise (raises if not)
+        _, err[key] = cs._seq_step(kernel, mine, plain, sc, fresh, budget,
+                                   flag, 0)
+        for a, b in zip(mine, saved):
+            a.copy_(b)
+        cases[key] = (lambda kernel=kernel, mine=mine, sc=sc, budget=budget:
+                      cs._seq_launch(kernel, fresh.to_words(), mine, sc,
+                                     budget, flag).result())
+runs = []
+for _ in range(n_runs):
+    runs.append({k: {"profiler": cs._named_ms(fn, "seq_mega_kernel", 1)}
+                 for k, fn in cases.items()})
+# [decode]'s A/B workload in megakernel mode without probes, through the
+# tree's serve_decode (every stream checked against the oracle inside it):
+# a warm-up, then SEQ_AB_DECODE_RUNS timed runs
+from repro_torch.launch.serve import serve_decode
+decode = []
+for i in range(cs.SEQ_AB_DECODE_RUNS + 1):
+    rep = serve_decode(engine="megakernel", preempt_every=0, quiet=True,
+                       **dict(cs.DECODE_MAIN, **cs.SURROGATE))
+    if i:
+        decode.append({k: rep[k] for k in ("tokens_per_s", "ttft_p50_s",
+                                           "ttft_p99_s")})
+print("AB " + json.dumps({"build": build, "err": err, "runs": runs,
+                          "decode": decode}))
+"""
+
+
+def ab_seq_main(other: str) -> int:
+    """``--ab-seq OTHER_TREE``: M2's and M3's device time per launch at
+    ``[decode]``'s shapes (a 128-token prompt; 32 slots, an 8-token round)
+    at ``SEQ_TIME_BUDGETS``, with another tree's kernels and with this
+    tree's, one process each, other, this, this, other; every process
+    builds its tree's ``seq_lm``, holds each case's whole task against the
+    plain version bitwise and logs the ptxas register and spill lines.
+    The inputs and timers are this script's."""
+    import os
+    import statistics
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs on an NVIDIA GPU", file=sys.stderr)
+        return 2
+    trees = {"other": str(Path(other).resolve()), "this": str(ROOT)}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    log(f"[ab-seq] {card_line()}; other = {trees['other']}, this = "
+        f"{trees['this']}; {AB_RUNS} timings a case a process")
+    got = {"other": [], "this": []}
+    decode = {"other": [], "this": []}
+    for arm in ("other", "this", "this", "other"):
+        out = subprocess.run(
+            [sys.executable, "-c", _AB_SEQ_WORKER, trees[arm], str(AB_RUNS)],
+            capture_output=True, text=True, env=env, cwd=str(ROOT),
+            timeout=TIMEOUT_S)
+        if out.returncode != 0:
+            raise AssertionError(f"[ab-seq] {arm}: exit {out.returncode}: "
+                                 f"{out.stderr[-3000:]}")
+        res = json.loads(next(ln for ln in out.stdout.splitlines()
+                              if ln.startswith("AB "))[3:])
+        for line in res["build"]:
+            log(f"[ab-seq] {arm} seq_lm build: {line}")
+        log(f"[ab-seq] {arm}: max abs difference from the plain version "
+            f"{res['err']}")
+        if max(res["err"].values()) != 0:
+            raise AssertionError(f"[ab-seq] {arm}: {res['err']}")
+        for r in res["runs"]:
+            log(f"[ab-seq] {arm}: {json.dumps(r)}")
+        for r in res["decode"]:
+            log(f"[ab-seq] {arm} serve decode, megakernel, no probes: "
+                f"{json.dumps(r)}")
+        got[arm] += res["runs"]
+        decode[arm] += res["decode"]
+    for name in got["this"][0]:
+        chunks = (DECODE_MAIN["prompt_len"] if "prefill" in name
+                  else DECODE_MAIN["round_tokens"])
+        budget = int(name.rsplit("_", 1)[1])
+        for arm, rs in got.items():
+            xs = [r[name]["profiler"] * 1e3 for r in rs
+                  if r[name]["profiler"] > 0]
+            if xs:
+                med = statistics.median(xs)
+                log(f"[ab-seq] {name} profiler {arm}: median {med:.4f} us a "
+                    f"launch ({med / -(-chunks // budget):.4f} us a chunk), "
+                    f"range {min(xs):.4f}-{max(xs):.4f} over {len(xs)}")
+    for arm, rs in decode.items():
+        tps = [r["tokens_per_s"] for r in rs]
+        log(f"[ab-seq] serve decode megakernel {arm}: tok/s "
+            f"{[round(x, 3) for x in tps]} (range {min(tps):.3f}-"
+            f"{max(tps):.3f}), TTFT p50 "
+            f"{[round(r['ttft_p50_s'] * 1e3, 3) for r in rs]} ms")
+    return 0
+
+
 def dryrun_main() -> int:
     """``--dryrun``: the ``[dryrun]`` phase alone."""
     import torch
@@ -5536,4 +5714,6 @@ if __name__ == "__main__":
         sys.exit(ab_main(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-attention"]:
         sys.exit(ab_attention_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--ab-seq"]:
+        sys.exit(ab_seq_main(sys.argv[2]))
     sys.exit(main())

@@ -122,8 +122,10 @@ class PreemptFlag:
     On a CUDA device the word is pinned host memory mapped into the
     device's address space (``csrc/preempt_flag.cu``); the host writes it
     through a numpy view and the running kernel reads it with system-scope
-    acquire loads, so a host store is seen at the next boundary with no
-    copy and no launch.  On the CPU it is a plain host ``int32``.
+    loads (M1, M4, M5: acquire loads at each boundary; M2/M3: relaxed loads
+    from a watcher warp, each deciding the boundary after it), so a host
+    store is seen within a boundary or two with no copy and no launch.  On
+    the CPU it is a plain host ``int32``.
 
     A second word holds the launch's progress: the chunks it has
     completed, written at every boundary before the flag is read (by the

@@ -4,8 +4,10 @@ to PyTorch: M2, ``seq_prefill_mega``, and M3, ``seq_decode_mega``.
 Counterparts of the reference's ``make_megakernel`` over ``seq_prefill``
 and ``seq_decode`` (``repro/core/preemption.py``,
 ``repro/serving/kernels.py``): one launch runs a serving task's remaining
-chunk loop on the card and polls the region's mapped preempt flag at every
-chunk boundary.  This module checks device, dtype, shapes and strides,
+chunk loop on the card, a watcher warp reading the region's mapped preempt
+flag one chunk ahead of the boundary it decides; ``plan`` gives the block's
+geometry and whether the state rows stay in shared memory for the launch.
+This module checks device, dtype, shapes and strides,
 launches on the current stream, raises if the launch was refused, and
 counts launches per kernel in ``MEGA_LAUNCHES``; the surrogate steps the
 device reports it ran go to ``STEPS`` when the launch's result is read.
@@ -28,7 +30,11 @@ STEPS = LaunchCounter()
 OUT_CHUNKS, OUT_STEPS, OUT_STATUS = CTX_WORDS, CTX_WORDS + 1, CTX_WORDS + 2
 OUT_WORDS = CTX_WORDS + 3
 SLOTS_W = 8          # the slots table's width (serving/engine.py SLOTS_W)
-MAX_SLOTS = 128      # 32 warps of one block, 4 rows a warp
+MAX_SLOTS = 128      # 26 compute warps of 5 rows and the watcher
+MAX_WARPS = 32       # a block's 1024 threads
+# the most state bytes a launch holds in shared memory (csrc/seq_lm.cu allows
+# up to 227 KiB less 1 KiB); above it the rows stay in global memory
+RESIDENT_BYTES = 224 * 1024
 
 
 def _fn(name: str, argtypes):
@@ -40,9 +46,27 @@ def _fn(name: str, argtypes):
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_PREFILL_ARGS = [_P] * 4 + [_I] * 5 + [_P] * 3 + [_I, _P]
-_DECODE_ARGS = ([_P, _P, _L, _P, _L, _P, _L] + [_I] * 6 + [_P] * 3
+_PREFILL_ARGS = [_P] * 4 + [_I] * 6 + [_P] * 3 + [_I, _P]
+_DECODE_ARGS = ([_P, _P, _L, _P, _L, _P, _L] + [_I] * 8 + [_P] * 3
                 + [_I, _P])
+
+
+def plan(s: int, d: int) -> dict:
+    """The launch's geometry for ``s`` state rows of ``d`` int32 (M2: ``s``
+    1): one block of ``compute_warps`` warps, each walking
+    ``rows_per_warp`` rows (a row a warp up to 31 rows, else as few as
+    fit in 31 warps), the lanes over ``d``, and one watcher warp that reads
+    the flag (``warps`` in all); ``resident`` when the rows'
+    ``smem_bytes`` fit in ``RESIDENT_BYTES`` of shared memory for the
+    launch, else they stay in global memory (``smem_bytes`` 0)."""
+    if not 1 <= s <= MAX_SLOTS or d < 1:
+        raise ValueError(f"S {s} (at most {MAX_SLOTS}), D {d}")
+    rows_per_warp = -(-s // (MAX_WARPS - 1))
+    compute = -(-s // rows_per_warp)
+    resident = s * d * 4 <= RESIDENT_BYTES
+    return {"warps": compute + 1, "compute_warps": compute,
+            "rows_per_warp": rows_per_warp, "resident": resident,
+            "smem_bytes": s * d * 4 if resident else 0}
 
 
 class MegaLaunch:
@@ -138,7 +162,7 @@ def seq_prefill_mega(ctx_words, out: torch.Tensor, state: torch.Tensor,
         "SeqPrefill", fn,
         (words.ctypes.data, out.data_ptr(), state.data_ptr(),
          prompt.data_ptr(), d, int(prompt_len), int(vocab), int(budget),
-         max_chunks), (out, state, prompt), flag)
+         max_chunks, int(plan(1, d)["resident"])), (out, state, prompt), flag)
 
 
 def seq_decode_mega(ctx_words, out: torch.Tensor, state: torch.Tensor,
@@ -161,17 +185,25 @@ def seq_decode_mega(ctx_words, out: torch.Tensor, state: torch.Tensor,
     if not 1 <= s <= MAX_SLOTS or d < 1 or vocab < 1:
         raise ValueError(f"S {s} (at most {MAX_SLOTS}), D {d}, vocab {vocab}")
     fn = _fn("seq_decode_mega", _DECODE_ARGS)
+    geo = plan(s, d)
     max_chunks = r + 2
     return launch_persistent(
         "SeqDecode", fn,
         (words.ctypes.data, out.data_ptr(), out.stride(0), state.data_ptr(),
          state.stride(0), slots.data_ptr(), slots.stride(0), s, d, r,
-         int(vocab), int(budget), max_chunks), (out, state, slots), flag)
+         int(vocab), int(budget), max_chunks, geo["rows_per_warp"],
+         int(geo["resident"])), (out, state, slots), flag)
 
 
 # csrc/seq_lm.cu's seq_latency_probe: the steps it times, in out[] order
+# ("parent_": the chunk of the earlier design, whose boundary read the flag
+# with ld.acquire.sys and whose steps kept the state in global memory)
 PROBE_STEPS = ("imad", "iadd", "shfl_add", "bar_sync", "flag_read",
-               "boundary", "m2_step", "m3_step", "token_of")
+               "boundary", "m2_step", "m3_step", "token_of",
+               "parent_control", "prompt_load", "parent_chunk_noflag",
+               "parent_chunk", "control", "m2_step_resident", "flag_relaxed",
+               "flag_overlap", "fence_sys", "device_read", "bar_after_read",
+               "m3_chunk_under_read")
 PROBE_WORDS = len(PROBE_STEPS) + 3
 
 
@@ -187,7 +219,9 @@ def latency_probe(flag, d: int, vocab: int, warps: int,
     counter moves."""
     if not getattr(flag, "device_ptr", 0):
         raise ValueError("flag must be a PreemptFlag made for a CUDA device")
-    if not 1 <= warps <= 32 or d < 1 or vocab < 1 or reps < 1:
+    # a row of d ints a warp in shared memory
+    if not 1 <= warps <= MAX_WARPS or d < 1 or warps * d * 4 > RESIDENT_BYTES \
+            or vocab < 1 or reps < 1:
         raise ValueError(f"warps {warps}, D {d}, vocab {vocab}, reps {reps}")
     device = torch.device("cuda", torch.cuda.current_device())
     row = torch.zeros(d, dtype=torch.int32, device=device)
@@ -199,6 +233,7 @@ def latency_probe(flag, d: int, vocab: int, warps: int,
     if err != 0:
         raise RuntimeError(f"seq_latency_probe failed: CUDA error {err}")
     w = out.cpu().tolist()
+    n = len(PROBE_STEPS)
     res = {k: w[i] / reps for i, k in enumerate(PROBE_STEPS)}
-    res["ns_per_cycle"] = w[10] / w[9]
+    res["ns_per_cycle"] = w[n + 1] / w[n]
     return res

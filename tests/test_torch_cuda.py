@@ -975,13 +975,18 @@ def _seq_step(kernel, mine, plain, scalars, ctx, budget, flag, boundary):
 @pytest.mark.parametrize("budget", [1, 2, 4])
 @pytest.mark.parametrize("d_model,vocab,size", [(16, 101, 3),
                                                 (384, 51865, 32),
-                                                (100, 51865, 130)])
+                                                (100, 51865, 130),
+                                                (1000, 51865, 56),
+                                                (1000, 51865, 128),
+                                                (60000, 101, 5)])
 def test_cuda_seq_mega_matches_plain_version(cuda_device, kernel, budget,
                                              d_model, vocab, size):
     """M2/M3 against their plain versions on the card: a whole task in one
     launch, then the flag at every boundary of a fresh task and its
     resume.  ``size`` is the prompt length (M2) or the slot rows (M3;
-    130 is cut to 128, the most one launch takes: 32 warps of 4 rows)."""
+    130 is cut to 128, the most one launch takes: 32 warps of 4 rows).
+    d_model 1000 puts M3's 56 rows in shared memory and its 128 rows over
+    the residency cap, in global memory; 60000 puts M2's one row there."""
     from repro_torch.kernels.seq_lm import kernel as QK
 
     if kernel == "SeqDecode":
@@ -1004,6 +1009,51 @@ def test_cuda_seq_mega_matches_plain_version(cuda_device, kernel, budget,
         while not ctx.done:
             ctx = _seq_step(kernel, mine, plain, scalars, ctx, budget, flag,
                             k)
+
+
+@pytest.mark.parametrize("kernel", ["SeqPrefill", "SeqDecode"])
+def test_cuda_seq_mega_flag_write_lag(cuda_device, kernel):
+    """A flag written into a running M2/M3 launch at budget 1 stops it at
+    most 2 chunks past the progress the host read right after the write,
+    and the buffers and context words then equal the plain version's
+    stopped at that boundary."""
+    from repro_torch.kernels.seq_lm import kernel as QK
+
+    steps, at_least = 100_000, 200
+    kw = (dict(prompt_len=steps) if kernel == "SeqPrefill" else
+          dict(slots=32, steps=steps))
+    flag = PreemptFlag(cuda_device)
+    mine, plain, scalars = _seq_inputs(kernel, cuda_device, 384, 51865,
+                                       seed=11, **kw)
+    if kernel == "SeqDecode":
+        for t in (mine[2], plain[2]):  # every row live all along
+            t[:, 0], t[:, 1] = 1, steps
+    ctx = ContextRecord.fresh()
+    if kernel == "SeqPrefill":
+        launch = QK.seq_prefill_mega(ctx.to_words(), *mine, steps,
+                                     scalars["vocab"], 1, flag)
+    else:
+        launch = QK.seq_decode_mega(ctx.to_words(), *mine, scalars["vocab"],
+                                    1, flag)
+    deadline = time.perf_counter() + TIMEOUT
+    while flag.progress() < at_least:
+        assert time.perf_counter() < deadline and not launch.query()
+    flag.write(1)
+    at = flag.progress()
+    words, n = launch.result()
+    assert 0 <= n - at <= 2, (n, at)
+    assert n < steps and flag.progress() == n
+    flag.write(n)
+    kd = get_kernel(kernel)
+    _, ints, floats = kd.bundle(*plain, **scalars).padded()
+    want, _, want_n = make_megakernel(kd)(ctx, plain, ints, floats, 1,
+                                          flag).result()
+    torch.cuda.synchronize()
+    assert want_n == n
+    np.testing.assert_array_equal(words, want.to_words())
+    for a, b in zip(mine, plain):
+        assert torch.equal(a, b)
+    flag.clear()
 
 
 def test_cuda_seq_mega_wrappers_reject_bad_inputs(cuda_device):
@@ -1038,16 +1088,29 @@ def test_cuda_seq_latency_probe(cuda_device, warps):
     """``seq_latency_probe`` (the latencies of M2/M3's serial chain) on
     the card: every step takes at least a cycle a repetition, a chunk
     boundary at least its flag read, a barrier and a shuffle-add pair more
-    than an add, and no launch counter moves."""
+    than an add; the earlier design's whole chunk at least its chunk
+    without the boundary and at least its boundary, that at least its
+    control; a flag read with a step under it more than the step (the
+    read, relaxed or acquire, more than a dependent add); and no launch
+    counter moves."""
     from repro_torch.kernels.seq_lm import kernel as QK
 
     flag = PreemptFlag(cuda_device)
     before = QK.MEGA_LAUNCHES.total()
     got = QK.latency_probe(flag, 384, 51865, warps, reps=256)
     assert set(got) == set(QK.PROBE_STEPS) | {"ns_per_cycle"}
+    assert len(QK.PROBE_STEPS) == 21
     assert all(got[k] >= 1.0 for k in QK.PROBE_STEPS), got
     assert got["boundary"] >= got["flag_read"] > got["iadd"]
     assert got["shfl_add"] > got["iadd"]
+    assert got["parent_chunk"] >= got["parent_chunk_noflag"]
+    assert got["parent_chunk"] >= got["boundary"]
+    assert got["parent_chunk_noflag"] >= got["parent_control"]
+    assert got["flag_overlap"] > got["m2_step_resident"]
+    assert got["flag_relaxed"] > got["iadd"]
+    assert got["device_read"] > got["iadd"]
+    assert got["bar_after_read"] >= got["bar_sync"]
+    assert got["m3_chunk_under_read"] > got["iadd"]
     assert 0.1 < got["ns_per_cycle"] < 2.0
     assert QK.MEGA_LAUNCHES.total() == before
     with pytest.raises(ValueError, match="warps"):

@@ -650,6 +650,42 @@ def _seq_inputs(kernel, d_model, vocab, seed=0):
     return ((out, state, slots), dict(S=S, D=d_model, R=R, vocab=vocab))
 
 
+@pytest.mark.parametrize("s,d,compute,rows_per_warp,resident", [
+    (1, 384, 1, 1, True),        # M2 at the surrogate's width
+    (31, 384, 31, 1, True),      # a row a warp, 31 of them and the watcher
+    (32, 384, 16, 2, True),      # M3 on the decode main path: 48 KiB
+    (128, 384, 26, 5, True),     # the most slots, still resident
+    (65, 100, 22, 3, True),
+    (56, 1000, 28, 2, True),     # 224000 bytes: under the cap
+    (64, 896, 22, 3, True),      # exactly the cap
+    (128, 1000, 26, 5, False),   # over it: the rows stay in global memory
+    (1, 57345, 1, 1, False),     # M2's one row over it
+])
+def test_seq_mega_plan(s, d, compute, rows_per_warp, resident):
+    """M2/M3's launch geometry and residency (``kernels/seq_lm/kernel.py``
+    ``plan``, which the wrappers pass to ``csrc/seq_lm.cu``): a warp a row
+    up to 31 rows, else the fewest rows a warp that fit in 31 warps, one
+    more warp to read the flag, the rows in shared memory while their bytes
+    fit in ``RESIDENT_BYTES``."""
+    from repro_torch.kernels.seq_lm import kernel as QK
+
+    got = QK.plan(s, d)
+    assert got == {"warps": compute + 1, "compute_warps": compute,
+                   "rows_per_warp": rows_per_warp, "resident": resident,
+                   "smem_bytes": s * d * 4 if resident else 0}
+    assert compute * rows_per_warp >= s > (compute - 1) * rows_per_warp
+    assert got["warps"] <= QK.MAX_WARPS
+    assert got["smem_bytes"] <= QK.RESIDENT_BYTES
+
+
+@pytest.mark.parametrize("s,d", [(0, 384), (129, 384), (32, 0)])
+def test_seq_mega_plan_rejects_what_no_launch_takes(s, d):
+    from repro_torch.kernels.seq_lm import kernel as QK
+
+    with pytest.raises(ValueError, match="at most 128"):
+        QK.plan(s, d)
+
+
 def _seq_mega_port(kernel, words, bufs, scalars, budget, flag):
     from repro_torch.kernels.seq_lm import ops as SQ
 
