@@ -79,17 +79,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    of its kernel and copy intervals from the first submission to the last
    result) and how long uploads and result copies ran at once;
 5e. the megakernel engine (``[mega]``) and M1, the persistent blur kernel
-   (one cooperative launch per task that polls the region's mapped preempt
-   flag at every chunk boundary): (1) M1 against its plain version on the
-   card (the host loop through ``make_pipelined_chunk`` with B1), both
-   kinds, sizes 30 (padded to 128), 256 and 4096, budgets 1, 2 and 8, a
-   whole 3-iteration task in one launch; the flag at every boundary of the
+   (one cooperative launch per task; a watcher block reads the region's
+   mapped preempt flag one chunk boundary ahead): (1) M1 against its plain
+   version on the card (the host loop through ``make_pipelined_chunk`` with
+   B1), both kinds, sizes 30 (padded to 128), 256 and 4096, budgets 1, 2, 3
+   and 8, a whole 3-iteration task in one launch (its row blocks and
+   grid-wide waits checked against ``mega_plan`` by the wrapper); the flag at every boundary of the
    small task (boundary 1 of every launch, then each boundary of a fresh
    launch and its resume) and at random boundaries of a 4096^2 task,
    resuming each time: after every exit the context words and chunk count
    equal, the images bitwise (median) or within 1e-6 (gaussian), the row
    blocks and the progress word exact; (2) a host ``request_preempt()``
-   30 % into a 4096^2 task of 12 iterations at budget 1: the launch exits
+   30 % into a 4096^2 task of 100 iterations at budget 1: the launch exits
    on the flag at most 2 chunks after the boundary the device had
    published when the write was done (its progress word, read right
    after the write), the host sees the exit within one chunk + its
@@ -105,11 +106,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    time, host time per task and urgent service), and one more megakernel
    run under ``torch.profiler``: the card's busy share and how long
    uploads and result copies ran at once (5d prints both for the
-   pipelined engine); (5) M1's device time per
-   chunk and per task (``torch.profiler``, by kernel name; else queued
-   behind a spin kernel), each kind timed twice, beside B1's 8-block run,
-   the bound and the plain version, with the grid and its cap, and two
-   regions' launches on two streams at once against one alone (the
+   pipelined engine); (5) ``blur_latency_probe``'s parts of a chunk at
+   budgets 1 and 8 (a pass's run, a grid sync, the earlier boundary, the
+   watcher's flag read, a hand-off round), then M1's device time per
+   chunk and per task at budgets 1 and 8 (``torch.profiler``, by kernel
+   name; else queued behind a spin kernel), each kind timed twice, beside
+   B1's 8-block run, the bound, the plain version and, for gaussian,
+   ``conv2d`` over a chunk's rows, with the grid and its cap; a flag
+   written into a running budget-1 launch (``MEGA_LAG_TRIALS`` trials, at
+   most 2 chunks past the progress read after the write); and two
+   regions' launches on two streams at once against one alone, with how
+   long each pair ran at once on the card (the
    medians of 21 interleaved reps each, less than 1.75x, where one after
    the other takes 2x);
 5f. the cluster fabric and the checkpoint store (``[cluster]``): two
@@ -333,6 +340,11 @@ M3's device time per launch at ``[decode]``'s shapes (a 128-token prompt;
 32 slots, an 8-token round) at budgets 1 and 2, each tree's whole task held
 against the plain version bitwise, and for the tokens/s and TTFT of
 ``[decode]``'s A/B workload in megakernel mode without probes.
+``python3 chip_smoke.py --ab-mega OTHER_TREE`` does the same for M1's
+device time per launch and per chunk of a 3-iteration 4096^2 task at
+budgets 1 and 8, both kinds (each tree's task held against the plain
+version), B1's 8-block run, and the megakernel arm of ``[mega]``'s main
+path (wall, host time per task, urgent service).
 ``python3 chip_smoke.py --dryrun`` runs the ``[dryrun]`` phase alone.
 """
 from __future__ import annotations
@@ -398,13 +410,15 @@ TIMEOUT_S = 300
 # budgets, 3 iterations; the flag at every boundary of the small task at
 # budget 2 and at random boundaries 1..12 of a 4096^2 task at budget 8
 MEGA_SIZES = (30, 256, 4096)
-MEGA_BUDGETS = (1, 2, 8)
+MEGA_BUDGETS = (1, 2, 3, 8)
 MEGA_ITERS = 3
 MEGA_SMALL_BUDGET = 2
 MEGA_RANDOM_MAX = 12
-# the mid-flight request and failure: a 4096^2 task of 12 iterations at
-# budget 1 (1536 chunks), hit this far into a launch
-MEGA_RESPONSE_ITERS = 12
+# the mid-flight request and failure: a 4096^2 task of 100 iterations at
+# budget 1 (12800 chunks, ~29 ms of M1 on the H100), hit this far into a
+# launch; long enough that a host thread's late wake-up (the GIL's 5 ms
+# switch interval) still lands the request mid-flight
+MEGA_RESPONSE_ITERS = 100
 MEGA_REQUEST_AT = 0.3
 # the response bound on the host's clock: one chunk's device time, the
 # host's longest poll sleep (region._POLL_MAX_S) and the time a shared
@@ -419,6 +433,17 @@ MEGA_AB = ("pipelined", "megakernel", "megakernel", "pipelined",
            "pipelined", "megakernel")
 MEGA_SIDE_REPS = 21
 MEGA_SIDE_MAX = 1.75   # two launches one after the other take about 2x
+# M1's device time at these budgets (a 3-iteration 4096^2 task); the probe
+# of a chunk's parts at each, repetitions a part
+MEGA_TIME_BUDGETS = (1, 8)
+MEGA_PROBE_REPS = 256
+# a flag write into a running M1 launch: a 4096^2 task of this many
+# iterations at budget 1 (never reached), the flag written once the launch
+# has published this many chunks
+MEGA_LAG_ITERS = 200
+MEGA_LAG_AT = 200
+MEGA_LAG_TRIALS = 5
+MEGA_AB_RUNS = 4       # main-path megakernel runs a process of --ab-mega
 REPLACES_MEGA = "src/repro/core/preemption.py:174"
 # [cluster]: the pipelined hop lands at this chunk boundary of its task, the
 # failure at this one of the task it kills; the migrate arm retries
@@ -1416,6 +1441,46 @@ def _drive_region(shell, task):
         return
 
 
+def _mega_lag(dev, flag, fresh, img) -> dict:
+    """A flag write landing in a running M1 launch at budget 1 (a
+    ``MEGA_LAG_ITERS``-iteration task of ``img``): the host writes the flag
+    once the launch has published ``MEGA_LAG_AT`` chunks, reads the
+    progress word right after and spins on the launch's event; the exit
+    must come at most ``MEGA_LATE_CHUNKS`` past the progress read."""
+    import torch
+
+    from repro_torch.kernels.blur import kernel as K
+
+    mine = (torch.tensor(img, device=dev), torch.zeros(img.shape, device=dev))
+    lags = []
+    for _ in range(MEGA_LAG_TRIALS):
+        launch = K.blur_mega(fresh, *mine, "median", MEGA_LAG_ITERS, 1, flag)
+        if not _wait(lambda: flag.progress() >= MEGA_LAG_AT, timeout=30):
+            raise AssertionError("[mega] the lag launch never progressed")
+        flag.write(1)
+        t_w = time.perf_counter()
+        at = flag.progress()
+        while not launch.query():
+            pass
+        t_x = time.perf_counter()
+        _, n = launch.result()
+        flag.clear()
+        lags.append(((t_x - t_w) * 1e6, n - at))
+        total = MEGA_LAG_ITERS * launch.plan.n_rb  # a row block a chunk
+        if not 0 <= n - at <= MEGA_LATE_CHUNKS or n >= total:
+            raise AssertionError(f"[mega] M1: the flag exit came {n - at} "
+                                 f"chunks after the write ({n} of {total} "
+                                 f"run)")
+    log(f"[mega] a flag write into a running M1 launch ({card_line()}; a "
+        f"{img.shape[0] - 2}^2 task of {MEGA_LAG_ITERS} iterations at budget "
+        f"1, written after {MEGA_LAG_AT} chunks): host write -> the launch's "
+        f"event seen {[round(t, 3) for t, _ in lags]} us, chunks after the "
+        f"device's published progress {[c for _, c in lags]} (at most "
+        f"{MEGA_LATE_CHUNKS})")
+    return {"flag_to_exit_us": [t for t, _ in lags],
+            "chunks_past_progress": [c for _, c in lags]}
+
+
 def mega_phase(rng, dev, imgs, b1_ms: dict) -> list:
     """5e. The megakernel engine and M1, the persistent blur kernel: M1
     against its plain version (every size, budget and kind; the flag at
@@ -1430,6 +1495,7 @@ def mega_phase(rng, dev, imgs, b1_ms: dict) -> list:
 
     import numpy as np
     import torch
+    import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
     import repro_torch
@@ -1706,50 +1772,103 @@ def mega_phase(rng, dev, imgs, b1_ms: dict) -> list:
                          f"range {min(xs):.4f}-{max(xs):.4f}")
         log(f"[mega] {engine}, {len(runs)} runs: " + "; ".join(parts))
 
-    # 5e.5 device time per chunk and per task --------------------------------
+    # 5e.5 what a chunk is made of, then the device time per chunk and task
     mine, plain = _mega_images(dev, imgs[1])
-    n_chunks = BG_ITERS * (SIZE // ROW_BLOCK) // RUN_BLOCKS
+    card = card_line()
+    probes = {}
+    for budget in MEGA_TIME_BUDGETS:
+        pr = K.latency_probe(*mine, "median", budget, flag,
+                             reps=MEGA_PROBE_REPS)
+        probes[budget] = pr
+        log(f"[mega] blur_latency_probe ({card}), median, budget {budget}, "
+            f"M1's grid {pr['grid']['grid']} blocks of 128 (the watcher "
+            f"included), {MEGA_PROBE_REPS} reps a part: a pass's run of "
+            f"{budget} row blocks {pr['run']:.4f} us, a grid sync "
+            f"{pr['grid_sync']:.4f} us, the earlier boundary (grid sync, "
+            f"volatile progress store and ld.acquire.sys flag read by one "
+            f"thread, grid sync) {pr['parent_boundary']:.4f} us, the "
+            f"watcher's ld.relaxed.sys flag read {pr['flag_relaxed']:.4f} "
+            f"us, a hand-off round (every block's red.release.gpu seen by "
+            f"the watcher's ld.acquire.gpu, its tag seen by the blocks) "
+            f"{pr['handoff_round']:.4f} us; the earlier chunk by its parts "
+            f"(run + grid sync + boundary) "
+            f"{pr['run'] + pr['grid_sync'] + pr['parent_boundary']:.4f} us")
+    fresh = ContextRecord.fresh().to_words()
     ints = task_ints(SIZE, SIZE, BG_ITERS)
     rows = RUN_BLOCKS * ROW_BLOCK
     nbytes = ((rows + 2) * (SIZE + 2) + rows * SIZE) * 4
+    weight = torch.tensor([[1., 2., 1.], [2., 4., 2.], [1., 2., 1.]],
+                          device=dev).div(16.0).view(1, 1, 3, 3)
+    conv_src = mine[0][None, None, :rows + 2]
     records = []
     timed = {"median": [], "gaussian": []}
     for kind in ("median", "gaussian", "gaussian", "median"):
-        def m1_task(kind=kind):
-            return K.blur_mega(fresh, *mine, kind, BG_ITERS, RUN_BLOCKS,
-                               flag)
-
         plain_entry = make_megakernel(get_kernel(KERNELS[kind]))
 
         def plain_task(kind=kind):
             plain_entry(ContextRecord.fresh(), plain, ints, None, RUN_BLOCKS,
                         flag)
 
+        arms = {"plain": (plain_task, "blur_rows",
+                          BG_ITERS * (SIZE // ROW_BLOCK) // RUN_BLOCKS)}
+        for budget in MEGA_TIME_BUDGETS:
+            arms[f"M1/{budget}"] = (
+                lambda kind=kind, budget=budget: K.blur_mega(
+                    fresh, *mine, kind, BG_ITERS, budget, flag),
+                "blur_mega", 1)
         dev_ms, wall_ms, hows = {}, {}, {}
-        for arm, fn, name, n_launch in (
-                ("M1", m1_task, "blur_mega", 1),
-                ("plain", plain_task, "blur_rows", n_chunks)):
+        for arm, (fn, name, n_launch) in arms.items():
+            wall_ms[arm] = cuda_time_ms(fn, reps=10)
             dev_ms[arm] = _named_ms(fn, name, n_launch)
             hows[arm] = "torch.profiler"
-            if dev_ms[arm] <= 0.0:
+            # a profiler window that caught part of a persistent launch
+            # reads short of the launch's back-to-back event time
+            if dev_ms[arm] <= 0.0 or (name == "blur_mega"
+                                      and dev_ms[arm] < 0.75 * wall_ms[arm]):
                 dev_ms[arm] = queued_ms(fn, reps=5)
                 hows[arm] = "queued behind a spin kernel"
-            wall_ms[arm] = cuda_time_ms(fn, reps=10)
-        grid = m1_task().grid
+        if kind == "gaussian":
+            def conv():
+                return F.conv2d(conv_src, weight)
+
+            dev_ms["library"] = device_ms(conv)
+            if dev_ms["library"] <= 0.0:
+                dev_ms["library"] = queued_ms(conv)
+        launch = arms[f"M1/{RUN_BLOCKS}"][0]()
+        launch.result()
+        grid, plan = launch.grid, launch.plan
+        n_chunks = {b: len(list(K.mega_plan(SIZE, SIZE, BG_ITERS, b, fresh)
+                                .chunks())) for b in MEGA_TIME_BUDGETS}
         bound = (nbytes / HBM_BYTES_PER_S * 1e3,
                  OPS_PER_PIXEL[kind] * rows * SIZE / F32_OPS_PER_S * 1e3)
-        per_chunk = dev_ms["M1"] / n_chunks
-        log(f"[mega] {kind} M1: {dev_ms['M1']:.6f} ms device a "
-            f"{BG_ITERS}-iteration {SIZE}^2 task at budget {RUN_BLOCKS} "
-            f"({hows['M1']}), {per_chunk * 1e3:.4f} us a chunk of "
-            f"{RUN_BLOCKS} row blocks; B1's {RUN_BLOCKS}-block run "
-            f"{b1_ms[kind] * 1e3:.4f} us; bound {max(bound) * 1e3:.4f} us a "
-            f"chunk (bytes {bound[0] * 1e3:.4f}, operations "
-            f"{bound[1] * 1e3:.4f}); the plain version (host loop, "
-            f"{n_chunks} B1 launches) {dev_ms['plain'] / n_chunks * 1e3:.4f} "
-            f"us device a chunk ({hows['plain']}); wall a task (CUDA events, "
-            f"back to back) M1 {wall_ms['M1']:.4f} ms, plain "
-            f"{wall_ms['plain']:.4f} ms; grid {grid['grid']} blocks of 128, "
+        per = {b: dev_ms[f"M1/{b}"] / n_chunks[b] for b in MEGA_TIME_BUDGETS}
+        floor = {b: max(probes[b]["run"], probes[b]["flag_relaxed"])
+                 for b in MEGA_TIME_BUDGETS}
+        n8 = n_chunks[RUN_BLOCKS]
+        log(f"[mega] {kind} M1 ({card}): a {BG_ITERS}-iteration {SIZE}^2 "
+            f"task " + ", ".join(
+                f"at budget {b}: {dev_ms[f'M1/{b}']:.6f} ms device "
+                f"({hows[f'M1/{b}']}), {per[b] * 1e3:.4f} us a chunk of "
+                f"{n_chunks[b]}" for b in MEGA_TIME_BUDGETS)
+            + "; the floor a chunk measured in this run (the probe's run "
+            "alone, or one flag read where longer): " + ", ".join(
+                f"budget {b} {floor[b]:.4f} us" for b in MEGA_TIME_BUDGETS)
+            + f"; {launch.waits} grid-wide waits a launch at budget "
+            f"{RUN_BLOCKS} (the plan's pass ends, {plan.totals(n8)[1]}); "
+            f"B1's {RUN_BLOCKS}-block run {b1_ms[kind] * 1e3:.4f} us; bound "
+            f"{max(bound) * 1e3:.4f} us a chunk of {RUN_BLOCKS} (bytes "
+            f"{bound[0] * 1e3:.4f}, operations {bound[1] * 1e3:.4f}); the "
+            f"plain version (host loop, {n8} B1 launches) "
+            f"{dev_ms['plain'] / n8 * 1e3:.4f} us device a chunk "
+            f"({hows['plain']}); "
+            + (f"conv2d over a chunk's {rows + 2} rows "
+               f"{dev_ms['library'] * 1e3:.4f} us; " if kind == "gaussian"
+               else "")
+            + "wall a task (CUDA events, back to back) " + ", ".join(
+                f"M1 budget {b} {wall_ms[f'M1/{b}']:.4f} ms"
+                for b in MEGA_TIME_BUDGETS)
+            + f", plain {wall_ms['plain']:.4f} ms; grid {grid['grid']} "
+            f"blocks of 128 ({grid['grid'] - 1} computing and the watcher), "
             f"cap {grid['cap']} (half of the {grid['coresident']} the card "
             f"holds at once)")
         timed[kind].append(dev_ms)
@@ -1757,8 +1876,7 @@ def mega_phase(rng, dev, imgs, b1_ms: dict) -> list:
             continue
         # the record: the mean of the kind's two timings
         dev_ms = {arm: sum(d[arm] for d in timed[kind]) / 2
-                  for arm in ("M1", "plain")}
-        per_chunk = dev_ms["M1"] / n_chunks
+                  for arm in timed[kind][0]}
         records.append({
             "name": f"blur_mega_{kind}", "route": "cuda",
             "source": "src/repro_torch/csrc/blur.cu",
@@ -1766,12 +1884,14 @@ def mega_phase(rng, dev, imgs, b1_ms: dict) -> list:
             "counterpart_of": "make_megakernel (a lax.while_loop over the "
                               "blur task, not a pallas_call)",
             "launches": m1[kind], "max_abs_err": errs[kind],
-            "ms": per_chunk, "per": f"chunk of {RUN_BLOCKS} row blocks",
-            "ms_per_task": dev_ms["M1"],
-            "plain_ms": dev_ms["plain"] / n_chunks,
+            "ms": dev_ms[f"M1/{RUN_BLOCKS}"] / n8,
+            "per": f"chunk of {RUN_BLOCKS} row blocks",
+            "ms_per_task": dev_ms[f"M1/{RUN_BLOCKS}"],
+            "plain_ms": dev_ms["plain"] / n8,
             "bound_ms": max(bound),
             "bound_by": "bytes" if bound[0] >= bound[1] else "operations",
-            "library_ms": None, "grid": grid})
+            "library_ms": dev_ms.get("library"), "grid": grid})
+    _mega_lag(dev, flag, fresh, imgs[1])
 
     # two regions' launches side by side: the cap leaves the other room
     streams = [torch.cuda.Stream(dev) for _ in range(2)]
@@ -1794,22 +1914,30 @@ def mega_phase(rng, dev, imgs, b1_ms: dict) -> list:
         handles = launch()
         for h in handles:
             h.result()
-        return time.perf_counter() - t0
+        return time.perf_counter() - t0, handles
 
     # alone and both interleaved, and each the median of its reps: a host
-    # hiccup in one rep (the host is shared) moves neither median
-    alones, boths = [], []
+    # hiccup in one rep (the host is shared) moves neither median.  Each
+    # pair's overlap on the card: the later first-block start to the
+    # earlier last-block end (%globaltimer)
+    alones, boths, overlaps = [], [], []
     for _ in range(MEGA_SIDE_REPS):
-        alones.append(timed(lambda: (on(0),)))
-        boths.append(timed(lambda: (on(0), on(1))))
+        alones.append(timed(lambda: (on(0),))[0])
+        dt, (h0, h1) = timed(lambda: (on(0), on(1)))
+        boths.append(dt)
+        overlaps.append((min(h0.interval[1], h1.interval[1])
+                         - max(h0.interval[0], h1.interval[0])) / 1e3)
     alone, both = statistics.median(alones), statistics.median(boths)
     log(f"[mega] two regions' M1 launches (each grid "
-        f"{side_grid['grid']}) on two streams at once: median "
+        f"{side_grid['grid']}) on two streams at once ({card}): median "
         f"{both * 1e3:.4f} ms for both (range {min(boths) * 1e3:.4f}-"
         f"{max(boths) * 1e3:.4f}) against {alone * 1e3:.4f} ms for one "
         f"alone (range {min(alones) * 1e3:.4f}-{max(alones) * 1e3:.4f}), "
         f"{MEGA_SIDE_REPS} interleaved reps each (ratio {both / alone:.3f}; "
-        f"one after the other would be about 2)")
+        f"one after the other would be about 2); the two launches ran at "
+        f"once for median {statistics.median(overlaps):.3f} us of each "
+        f"pair (range {min(overlaps):.3f}-{max(overlaps):.3f}; overlapping "
+        f"in {sum(o > 0 for o in overlaps)} of {MEGA_SIDE_REPS} pairs)")
     if both / alone >= MEGA_SIDE_MAX:
         raise AssertionError(f"[mega] two regions' launches took "
                              f"{both / alone:.3f}x one's: the second region "
@@ -5687,6 +5815,143 @@ def ab_seq_main(other: str) -> int:
     return 0
 
 
+_AB_MEGA_WORKER = r"""
+import json, sys
+tree, n_runs = sys.argv[1], int(sys.argv[2])
+import numpy as np
+import torch
+import chip_smoke as cs                 # this tree's inputs and timers
+sys.path.insert(0, tree + "/src")       # the tree's kernels, ahead of ours
+from repro_torch.kernels import native
+from repro_torch.kernels.blur import kernel as K
+from repro_torch.kernels.blur.tasks import KERNELS, ROW_BLOCK, make_image
+from repro_torch.kernels.blur.tasks import task_ints
+from repro_torch.controller.kernels import get_kernel
+from repro_torch.core.context import ContextRecord
+from repro_torch.core.preemption import PreemptFlag, make_megakernel
+assert K.__file__.startswith(tree)
+native.load_libraries(("blur", "preempt_flag"))
+build = [ln.strip() for ln in native.build_info["blur"]["log"].splitlines()
+         if "registers" in ln or "spill" in ln]
+dev = torch.device("cuda", 0)
+rng = np.random.default_rng(0)
+imgs = [make_image(rng, cs.SIZE) for _ in range(3)]
+flag, fresh = PreemptFlag(dev), ContextRecord.fresh()
+ints = task_ints(cs.SIZE, cs.SIZE, cs.BG_ITERS)
+mine, plain = cs._mega_images(dev, imgs[1])
+cases, err = {}, {}
+for kind in ("median", "gaussian"):
+    for budget in cs.MEGA_TIME_BUDGETS:
+        key = f"{kind}/budget_{budget}"
+        # a whole task against the plain version (raises if not equal)
+        saved = [b.clone() for b in mine]
+        words, n = K.blur_mega(fresh.to_words(), *mine, kind, cs.BG_ITERS,
+                               budget, flag).result()
+        want, _, want_n = make_megakernel(get_kernel(KERNELS[kind]))(
+            fresh, plain, ints, None, budget, flag).result()
+        torch.cuda.synchronize()
+        assert n == want_n and np.array_equal(words, want.to_words()), key
+        err[key] = max(cs.check(kind, a, b) for a, b in zip(mine, plain))
+        for a, b, c in zip(mine, plain, saved):
+            a.copy_(c)
+            b.copy_(c)
+        cases[key] = (lambda kind=kind, budget=budget: K.blur_mega(
+            fresh.to_words(), *mine, kind, cs.BG_ITERS, budget, flag))
+    cases[f"{kind}/b1_run"] = (lambda kind=kind: K.blur_rows(
+        mine[0], mine[1], 0, ROW_BLOCK, kind, cs.RUN_BLOCKS))
+runs = []
+for _ in range(n_runs):
+    runs.append({k: cs._named_ms(fn, "blur_rows" if "b1" in k
+                                 else "blur_mega", 1)
+                 for k, fn in cases.items()})
+del mine, plain
+# the megakernel arm of [mega]'s main path: a warm-up, then MEGA_AB_RUNS
+main = []
+for i in range(cs.MEGA_AB_RUNS + 1):
+    tasks, urgent, rep, wall_s, _ = cs.serve(imgs, 0.0, engine="megakernel")
+    every = (*tasks, urgent)
+    if i:
+        main.append({"wall_ms": wall_s * 1e3,
+                     "host_ms_per_task": sum(t.run_s for t in every)
+                     / len(every) * 1e3,
+                     "urgent_service_ms": urgent.service_time * 1e3,
+                     "megakernel_launches": rep["megakernel_launches"]})
+print("AB " + json.dumps({"build": build, "err": err, "runs": runs,
+                          "main": main}))
+"""
+
+
+def ab_mega_main(other: str) -> int:
+    """``--ab-mega OTHER_TREE``: M1's device time per launch and per chunk
+    of a 3-iteration 4096^2 task at ``MEGA_TIME_BUDGETS``, median and
+    gaussian, B1's main-path run, and the megakernel arm of ``[mega]``'s
+    main path (wall, host time per task, urgent service), with another
+    tree's kernels and path and with this tree's, one process each,
+    other, this, this, other; every process builds its tree's ``blur``,
+    holds each task against the plain version (median bitwise, gaussian
+    within 1e-6) and logs the ptxas register and spill lines.  The inputs
+    and timers are this script's."""
+    import os
+    import statistics
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs on an NVIDIA GPU", file=sys.stderr)
+        return 2
+    from repro_torch.core.context import ContextRecord
+    from repro_torch.kernels.blur.kernel import mega_plan
+
+    trees = {"other": str(Path(other).resolve()), "this": str(ROOT)}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    log(f"[ab-mega] {card_line()}; other = {trees['other']}, this = "
+        f"{trees['this']}; {AB_RUNS} timings a case a process")
+    got = {"other": [], "this": []}
+    main = {"other": [], "this": []}
+    for arm in ("other", "this", "this", "other"):
+        out = subprocess.run(
+            [sys.executable, "-c", _AB_MEGA_WORKER, trees[arm],
+             str(AB_RUNS)], capture_output=True, text=True, env=env,
+            cwd=str(ROOT), timeout=TIMEOUT_S)
+        if out.returncode != 0:
+            raise AssertionError(f"[ab-mega] {arm}: exit {out.returncode}: "
+                                 f"{out.stderr[-3000:]}")
+        res = json.loads(next(ln for ln in out.stdout.splitlines()
+                              if ln.startswith("AB "))[3:])
+        for line in res["build"]:
+            log(f"[ab-mega] {arm} blur build: {line}")
+        log(f"[ab-mega] {arm}: max abs difference from the plain version "
+            f"{res['err']}")
+        for r in res["runs"]:
+            log(f"[ab-mega] {arm}: {json.dumps(r)}")
+        for r in res["main"]:
+            log(f"[ab-mega] {arm} main path, megakernel: {json.dumps(r)}")
+        got[arm] += res["runs"]
+        main[arm] += res["main"]
+    fresh = ContextRecord.fresh().to_words()
+    for name in got["this"][0]:
+        chunks = 1
+        if "budget_" in name:
+            chunks = len(list(mega_plan(SIZE, SIZE, BG_ITERS,
+                                        int(name.rsplit("_", 1)[1]),
+                                        fresh).chunks()))
+        for arm, rs in got.items():
+            xs = [r[name] * 1e3 for r in rs if r[name] > 0]
+            if xs:
+                med = statistics.median(xs)
+                log(f"[ab-mega] {name} profiler {arm}: median {med:.4f} us "
+                    f"a launch ({med / chunks:.4f} us a chunk of {chunks}), "
+                    f"range {min(xs):.4f}-{max(xs):.4f} over {len(xs)}")
+    for arm, rs in main.items():
+        for key in ("wall_ms", "host_ms_per_task", "urgent_service_ms"):
+            xs = [r[key] for r in rs]
+            log(f"[ab-mega] main path megakernel {arm} {key}: median "
+                f"{statistics.median(xs):.4f}, range {min(xs):.4f}-"
+                f"{max(xs):.4f} over {len(xs)} runs")
+    return 0
+
+
 def dryrun_main() -> int:
     """``--dryrun``: the ``[dryrun]`` phase alone."""
     import torch
@@ -5716,4 +5981,6 @@ if __name__ == "__main__":
         sys.exit(ab_attention_main(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-seq"]:
         sys.exit(ab_seq_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--ab-mega"]:
+        sys.exit(ab_mega_main(sys.argv[2]))
     sys.exit(main())

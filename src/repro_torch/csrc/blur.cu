@@ -61,34 +61,74 @@
 // the reference's `make_megakernel` (src/repro/core/preemption.py:174) over
 // the blur task, a jitted `lax.while_loop` that runs on its CPU backend
 // only; not a `pallas_call`.  One cooperative launch runs the task's whole
-// remaining chunk loop: every thread of every block runs the for_save
+// remaining chunk loop.  Every thread of every block runs the for_save
 // control flow of kernels/blur/tasks.py over its own copy of the 36 context
 // words (registers), the same scalar code on the same inputs, so all take
-// the same branches and meet every grid sync together; the blocks share the
-// row blocks of each pass's run in a grid-stride loop over B1's tiles (8
-// rows a thread), loading through L2 (`__ldcg`, not the read-only path: a
-// pass reads what the last one wrote in the same launch).  A grid sync
-// follows each run and each chunk boundary; at a boundary block 0's thread
-// 0 writes the chunks done to a mapped host word, reads the host's preempt
-// flag with `ld.acquire.sys` and publishes the stop decision in device
-// memory for all blocks.  Block 0 writes back the context words, the chunk
-// count and the row blocks; every block adds the tiles it ran, so the host
-// checks that the grid covered each row block once.
+// the same branches; the compute blocks share the row blocks of each pass's
+// run in a grid-stride loop over B1's tiles (8 rows a thread), with plain
+// loads (not the read-only path: a pass reads what other blocks wrote
+// earlier in the same launch, visible once the pass's wait has acquired
+// their release).  The last block is the watcher:
+// its thread 0 runs the same control flow without the runs and alone
+// touches the host's words.
+//
+// Waits.  Pass k reads one image and writes the other, so within a pass
+// consecutive chunks write disjoint row blocks and read a source nothing
+// writes: blocks may be a chunk apart there.  Only a run that starts a new
+// pass inside the launch must wait for every block to have finished the
+// last one (it reads the halo rows other blocks wrote, and overwrites the
+// image they read): one grid-wide wait a pass, where the pass ends, inside
+// the chunk when a chunk crosses it.  Each compute block reports a pass end
+// on a device counter (`red.release.gpu` after a block barrier) and waits,
+// before the next pass's run, until the counter holds every block's report
+// (`ld.acquire.gpu`, then a block barrier).  kernels/blur/kernel.py's
+// `mega_plan` gives the waits a launch takes; the kernel reports them.
+//
+// Boundary.  The stop rule is the reference's: at least one chunk unless
+// the context is already done, then an exit at the first boundary n >=
+// flag when flag != 0; the progress word ends equal to the chunks run.  For
+// each chunk n the watcher publishes decision n (a device word tagged with
+// n, so no slot is reset and a stale boundary's word never reads as this
+// one's), waits until every compute block has reported chunk n (a device
+// counter), stores n to the host's progress word (`st.relaxed.sys`) and
+// then issues the flag read that decides boundary n + 1 (`ld.relaxed.sys`).
+// The read for boundary 1 is issued at launch, so a flag armed before the
+// launch stops it at boundary 1; no read is issued for a boundary the task
+// cannot reach (its chunk completes it).  A compute block starts chunk
+// n + 1 once it sees decision n, whose read was issued a chunk earlier, so
+// the read normally hides under chunk n's run.  A flag written into a
+// running launch stops it at most 2 chunks past the progress the host read
+// after its write: the store of that progress + 1 and the read issued after
+// it reach host memory after the write (they leave the SM in that order
+// and PCIe keeps a read behind the writes before it; a `fence.sc.sys`
+// between them costs more than the read, as `seq_latency_probe` in
+// seq_lm.cu times it), and that read decides the boundary after.  The
+// earlier design, a grid sync after each run and one thread's read of the
+// host's word between two more, is what `blur_latency_probe` (below)
+// times part by part.
+//
+// Block 0 writes back the context words, the chunk count, the row blocks
+// and the grid-wide waits it took; every block adds the tiles it ran, so
+// the host checks that the grid covered each row block once; the first
+// block's start and the last block's end are stamped from %globaltimer.
 //   blur_mega(ctx, ping, pong, stride, n_rb, width, iters, budget,
-//             max_chunks, kind, vec, flag, progress, out, device, info,
-//             stream)
-// The grid is sized with cudaOccupancyMaxActiveBlocksPerMultiprocessor and
-// capped at half the blocks the card holds at once (`kRegionsSharing`): a
-// cooperative launch starts only when all its blocks fit, so two uncapped
-// regions would run one after the other.  No more blocks than one run's
-// tiles.  `max_chunks` bounds the loop: a launch that reaches it undone
+//             max_chunks, blocks, kind, vec, flag, progress, out, device,
+//             info, stream)
+// `blocks` (the plan's grid, one tile a block in the largest run) is capped
+// so that the launch, the watcher included, takes at most half the blocks
+// the card holds at once (`kRegionsSharing`): a cooperative launch starts
+// only when all its blocks fit, so two uncapped regions would run one after
+// the other.  `max_chunks` bounds the loop: a launch that reaches it undone
 // reports status 1 and the wrapper raises, so a broken control flow cannot
-// hold the card.
+// hold the card.  Asking the L2 for the next run's source rows
+// (`cp.async.bulk.prefetch.L2`, each block its tile's rows after its run)
+// did not pay on the H100 and is not done.
 // Bound: B1's bytes per chunk (2.51 us for an 8-block chunk at width 4096);
-// the syncs and the flag read come on top.  Numerics are B1's, bit for bit.
+// the waits come on top.  Numerics are B1's, bit for bit.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "mega.cuh"
 
@@ -98,7 +138,9 @@ namespace {
 
 using mega::Ctx;
 using mega::kCtxWords;
+using mega::issue_flag_read;
 using mega::load_flag;
+using mega::store_progress;
 
 constexpr int kThreads = 128;
 
@@ -139,14 +181,18 @@ __device__ __forceinline__ float gaussian9(const float (&col)[3][4], int j) {
 
 // One float (or float2) of a source row.  kNc: through the read-only data
 // cache (`__ldg`), for a source nothing writes while the kernel runs (B1);
-// otherwise from L2 (`__ldcg`), for the persistent kernel, whose passes read
-// what another block wrote earlier in the same launch.
+// otherwise a plain load, cached in L1, for the persistent kernel: its
+// passes read what other blocks wrote earlier in the same launch, which a
+// load sees once its block has waited for the pass's end with an acquire
+// (the non-coherent read-only path would not).  On the H100 they took M1's
+// median chunk at budget 8 from 4.78 to 4.43 us against `__ldcg`'s L2
+// loads (chip_smoke.py --ab-mega before and after).
 template <bool kNc, typename T>
 __device__ __forceinline__ T load(const T* p) {
   if constexpr (kNc) {
     return __ldg(p);
   } else {
-    return __ldcg(p);
+    return *p;
   }
 }
 
@@ -247,13 +293,23 @@ void launch_rows(const float* src, long long src_stride, float* dst, long long d
 constexpr int kSlotK = 0, kSlotRow = 1;     // kernels/blur/tasks.py
 constexpr int kRowBlock = 32;               // the preemption unit: one budget unit
 constexpr int kMegaRows = 8;                // output rows a thread per tile
-// out[]: the context words, then these
-constexpr int kOutChunks = kCtxWords;       // chunks this launch ran
+// out[] (int32 words, zeroed by the caller): the context words, then these
+constexpr int kOutChunks = kCtxWords;         // chunks this launch ran
 constexpr int kOutRowBlocks = kCtxWords + 1;  // row blocks its control issued
-constexpr int kOutTiles = kCtxWords + 2;    // tiles the blocks ran (atomic sum)
-constexpr int kOutStatus = kCtxWords + 3;   // 0, or 1: hit max_chunks undone
-constexpr int kOutDecision = kCtxWords + 4;  // 2 slots: the stop word of a boundary
-constexpr int kOutWords = kCtxWords + 6;
+constexpr int kOutTiles = kCtxWords + 2;      // tiles the blocks ran (atomic sum)
+constexpr int kOutStatus = kCtxWords + 3;     // 0, or 1: hit max_chunks undone
+constexpr int kOutWaits = kCtxWords + 4;      // grid-wide waits block 0 took
+// two u64: ~%globaltimer at the first block's start (the largest
+// complement), %globaltimer at the last block's end
+constexpr int kOutStart = kCtxWords + 6;
+constexpr int kOutEnd = kCtxWords + 8;
+// the words the blocks hand each other, a 128-byte line each
+constexpr int kOutChunkReports = 64;  // compute blocks' chunk ends
+constexpr int kOutPassReports = 96;   // compute blocks' pass ends
+constexpr int kOutDecision = 128;     // (boundary << 1) | stop, from the watcher
+constexpr int kOutWords = 160;  // kernels/blur/kernel.py OUT_WORDS
+static_assert(kOutStart % 2 == 0 && kOutEnd % 2 == 0 && kOutDecision < kOutWords,
+              "u64 stamps, every word inside out[]");
 // a region's launch takes at most 1 / kRegionsSharing of the blocks the
 // card can hold at once, so another region's cooperative launch still fits
 constexpr int kRegionsSharing = 2;
@@ -269,137 +325,357 @@ struct MegaArgs {
   int* out;         // kOutWords device words, zeroed by the caller
 };
 
+// Hand-offs between blocks through device memory.
+__device__ __forceinline__ void red_release(int* p) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(1) : "memory");
+}
+__device__ __forceinline__ void red_relaxed(int* p) {
+  asm volatile("red.relaxed.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(1) : "memory");
+}
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ int ld_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_relaxed(int* p, int v) {
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+// spin until the counter at p holds at least `target` reports
+__device__ __forceinline__ void wait_reports(const int* p, int target) {
+  while (ld_acquire(p) < target) {
+  }
+}
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ void stamp_start(int* out) {
+  atomicMax(reinterpret_cast<unsigned long long*>(out + kOutStart), ~global_ns());
+}
+__device__ __forceinline__ void stamp_end(int* out) {
+  atomicMax(reinterpret_cast<unsigned long long*>(out + kOutEnd), global_ns());
+}
+
 // Blur row blocks [first, first + n_blocks) of `src` into `dst` in place,
-// the tiles shared over the grid.  Returns the tiles this block ran.
+// the tiles shared over the `blocks` compute blocks.  Returns the tiles
+// this block ran.
 template <bool kVec, bool kMedian>
 __device__ __forceinline__ int mega_run(const float* src, float* dst, long long stride, int first,
-                                        int n_blocks, int width) {
+                                        int n_blocks, int width, int blocks) {
   const int rows = n_blocks * kRowBlock;
   const int col_blocks = ((width + 1) / 2 + kThreads - 1) / kThreads;
   const int n_tiles = col_blocks * (rows / kMegaRows);
   const float* s = src + (long long)first * kRowBlock * stride;
   float* d = dst + ((long long)first * kRowBlock + 1) * stride + 1;
   int mine = 0;
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++mine) {
+  for (int t = blockIdx.x; t < n_tiles; t += blocks, ++mine) {
     blur_tile<kMegaRows, kVec, kMedian, false>(s, stride, d, stride, rows, width,
                                                t % col_blocks, t / col_blocks);
   }
   return mine;
 }
 
-// Every thread of every block runs the task's control flow, the same scalar
-// code on the same inputs, so all take the same branches and meet every
-// grid sync together.  It is kernels/blur/tasks.py's _blur_task under
-// core/preemption.py's for_save, word for word, chunk after chunk:
+// One chunk of the task's control flow from `c`: kernels/blur/tasks.py's
+// _blur_task under core/preemption.py's for_save, word for word:
 //   for_save(K, 0, iters): checkpoint(K, k);
 //     for_save(ROW, 0, n_rb): checkpoint(ROW, r + 1)   -- a row block each
 //     run the pass's row blocks; if not intr: checkpoint(K, k + 1)
 //   if not intr: done
 // with dec_budget on both loop levels and intr telling the outer loop that
-// the inner one was cut.  A grid sync follows each pass's run (the next pass
-// reads what it wrote) and each chunk boundary (the stop decision).
+// the inner one was cut.  `run(k, first, n_blocks, ends_pass)` is called
+// for each pass's run.
+template <typename Run>
+__device__ __forceinline__ void chunk_control(Ctx& c, int n_rb, int iters, int budget, Run&& run) {
+  c.budget = budget;  // ctx.with_budget(budget)
+  c.intr = 0;
+  // for_save(ctx, SLOT_K, 0, iters, 1, body_k)
+  c.init_var[kSlotK] = 0;  // declare
+  c.incr_var[kSlotK] = 1;
+  int k = c.saved[kSlotK] == 1 ? c.var[kSlotK] : 0;  // resume_value
+  c.saved[kSlotK] = 0;                                 // unsave
+  while (k < iters && c.budget > 0 && c.intr == 0) {
+    c.intr = 0;
+    c.var[kSlotK] = k;  // body_k: checkpoint(SLOT_K, k)
+    c.saved[kSlotK] = 1;
+    // for_save(ctx, SLOT_ROW, 0, n_rb, 1, body_row)
+    c.init_var[kSlotRow] = 0;
+    c.incr_var[kSlotRow] = 1;
+    int r = c.saved[kSlotRow] == 1 ? c.var[kSlotRow] : 0;
+    c.saved[kSlotRow] = 0;
+    const int first = r;
+    while (r < n_rb && c.budget > 0 && c.intr == 0) {
+      c.intr = 0;
+      c.var[kSlotRow] = r + 1;  // body_row: checkpoint(SLOT_ROW, r + 1)
+      c.saved[kSlotRow] = 1;
+      c.budget -= 1;  // body_row holds no loop: the iteration always counts
+      r += 1;
+    }
+    const bool rows_done = r >= n_rb;
+    if (rows_done) {  // clear(SLOT_ROW)
+      c.var[kSlotRow] = 0;
+      c.saved[kSlotRow] = 0;
+    }
+    c.intr = rows_done ? 0 : 1;
+    run(k, first, r - first, rows_done);
+    if (c.intr == 0) {  // checkpoint(SLOT_K, k + 1)
+      c.var[kSlotK] = k + 1;
+      c.saved[kSlotK] = 1;
+    }
+    const bool ok = c.intr == 0;
+    c.budget -= 1;
+    if (ok) k += 1;
+  }
+  const bool iters_done = k >= iters;
+  if (iters_done) {  // clear(SLOT_K)
+    c.var[kSlotK] = 0;
+    c.saved[kSlotK] = 0;
+  }
+  c.intr = iters_done ? 0 : 1;
+  if (c.intr == 0) c.done = 1;  // ctx.finish()
+}
+
+// The watcher (thread 0 of the last block): the boundary protocol above,
+// the compute blocks' control flow without the runs.
+__device__ void watch(const MegaArgs& a, int blocks) {
+  const auto no_run = [](int, int, int, bool) {};
+  Ctx c = a.ctx;
+  if (c.done != 0) return;
+  Ctx next = c;
+  chunk_control(next, a.n_rb, a.iters, a.budget, no_run);
+  int f = next.done == 0 ? issue_flag_read(a.flag) : 0;  // decides boundary 1
+  for (int n = 1;; ++n) {
+    c = next;  // the context after chunk n
+    int stop = 0;
+    if (c.done == 0) {
+      stop = f != 0 && n >= f;
+      st_relaxed(a.out + kOutDecision, (n << 1) | stop);
+    }
+    wait_reports(a.out + kOutChunkReports, n * blocks);
+    store_progress(a.progress, n);
+    if (c.done != 0 || stop || n == a.max_chunks) return;
+    chunk_control(next, a.n_rb, a.iters, a.budget, no_run);
+    if (next.done == 0) f = issue_flag_read(a.flag);  // decides boundary n + 1
+  }
+}
+
 template <bool kVec, bool kMedian>
 __global__ void __launch_bounds__(kThreads) blur_mega_kernel(const MegaArgs a) {
-  cg::grid_group grid = cg::this_grid();
+  const int blocks = gridDim.x - 1;  // the compute blocks; the last one watches
+  if (threadIdx.x == 0) stamp_start(a.out);
+  if (blockIdx.x == blocks) {
+    if (threadIdx.x == 0) {
+      watch(a, blocks);
+      stamp_end(a.out);
+    }
+    return;
+  }
+  __shared__ int stop_word;
   Ctx c = a.ctx;
-  int n_chunks = 0, row_blocks = 0, status = 0, stop = 0;
+  int n_chunks = 0, row_blocks = 0, status = 0, stop = 0, tiles = 0, waits = 0;
+  int pass_ends = 0;
+  bool first_run = true;
   while (c.done == 0 && stop == 0) {
     if (n_chunks == a.max_chunks) {  // never on a right control flow
       status = 1;
       break;
     }
-    c.budget = a.budget;  // ctx.with_budget(budget)
-    c.intr = 0;
-    // for_save(ctx, SLOT_K, 0, iters, 1, body_k)
-    c.init_var[kSlotK] = 0;  // declare
-    c.incr_var[kSlotK] = 1;
-    int k = c.saved[kSlotK] == 1 ? c.var[kSlotK] : 0;  // resume_value
-    c.saved[kSlotK] = 0;                                 // unsave
-    while (k < a.iters && c.budget > 0 && c.intr == 0) {
-      c.intr = 0;
-      c.var[kSlotK] = k;  // body_k: checkpoint(SLOT_K, k)
-      c.saved[kSlotK] = 1;
-      // for_save(ctx, SLOT_ROW, 0, n_rb, 1, body_row)
-      c.init_var[kSlotRow] = 0;
-      c.incr_var[kSlotRow] = 1;
-      int r = c.saved[kSlotRow] == 1 ? c.var[kSlotRow] : 0;
-      c.saved[kSlotRow] = 0;
-      const int first = r;
-      while (r < a.n_rb && c.budget > 0 && c.intr == 0) {
-        c.intr = 0;
-        c.var[kSlotRow] = r + 1;  // body_row: checkpoint(SLOT_ROW, r + 1)
-        c.saved[kSlotRow] = 1;
-        c.budget -= 1;  // body_row holds no loop: the iteration always counts
-        r += 1;
+    chunk_control(c, a.n_rb, a.iters, a.budget, [&](int k, int first, int n, bool ends_pass) {
+      if (first == 0 && !first_run) {  // a new pass: every block done with the last
+        if (threadIdx.x == 0) wait_reports(a.out + kOutPassReports, pass_ends * blocks);
+        __syncthreads();
+        ++waits;
       }
-      const bool rows_done = r >= a.n_rb;
-      if (rows_done) {  // clear(SLOT_ROW)
-        c.var[kSlotRow] = 0;
-        c.saved[kSlotRow] = 0;
+      first_run = false;
+      // iteration k reads ping when k is even
+      const float* src = k % 2 == 0 ? a.ping : a.pong;
+      tiles += mega_run<kVec, kMedian>(src, k % 2 == 0 ? a.pong : a.ping, a.stride, first, n,
+                                       a.width, blocks);
+      row_blocks += n;
+      if (ends_pass) {
+        ++pass_ends;
+        __syncthreads();
+        if (threadIdx.x == 0) red_release(a.out + kOutPassReports);
       }
-      c.intr = rows_done ? 0 : 1;
-      // the pass's run: iteration k reads ping when k is even
-      const bool even = c.var[kSlotK] % 2 == 0;
-      const int mine = mega_run<kVec, kMedian>(even ? a.ping : a.pong, even ? a.pong : a.ping,
-                                               a.stride, first, r - first, a.width);
-      if (threadIdx.x == 0 && mine) atomicAdd(a.out + kOutTiles, mine);
-      row_blocks += r - first;
-      grid.sync();
-      if (c.intr == 0) {  // checkpoint(SLOT_K, k + 1)
-        c.var[kSlotK] = k + 1;
-        c.saved[kSlotK] = 1;
-      }
-      const bool ok = c.intr == 0;
-      c.budget -= 1;
-      if (ok) k += 1;
-    }
-    const bool iters_done = k >= a.iters;
-    if (iters_done) {  // clear(SLOT_K)
-      c.var[kSlotK] = 0;
-      c.saved[kSlotK] = 0;
-    }
-    c.intr = iters_done ? 0 : 1;
-    if (c.intr == 0) c.done = 1;  // ctx.finish()
+    });
     ++n_chunks;
-    // the chunk boundary: one thread tells the host how far the launch got,
-    // reads the host's word and publishes the decision, so a host write
-    // landing meanwhile cannot split the grid.  Two slots: a block still
-    // reading the last boundary's never sees this one's write
-    int* decision = a.out + kOutDecision + (n_chunks & 1);
-    if (blockIdx.x == 0 && threadIdx.x == 0) {
-      *reinterpret_cast<volatile int*>(a.progress) = n_chunks;
-      const int f = load_flag(a.flag);
-      *reinterpret_cast<volatile int*>(decision) = (f != 0 && n_chunks >= f) ? 1 : 0;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      red_relaxed(a.out + kOutChunkReports);
+      if (c.done == 0) {  // decision n_chunks; a later boundary's means it ran on
+        int d;
+        while ((d = ld_relaxed(a.out + kOutDecision)) >> 1 < n_chunks) {
+        }
+        stop_word = d >> 1 == n_chunks ? d & 1 : 0;
+      }
     }
-    grid.sync();
-    stop = *reinterpret_cast<volatile int*>(decision);
+    __syncthreads();
+    if (c.done == 0) stop = stop_word;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    mega::write_ctx(a.out, c);
-    a.out[kOutChunks] = n_chunks;
-    a.out[kOutRowBlocks] = row_blocks;
-    a.out[kOutStatus] = status;
+  if (threadIdx.x == 0) {
+    if (tiles) atomicAdd(a.out + kOutTiles, tiles);
+    if (blockIdx.x == 0) {
+      mega::write_ctx(a.out, c);
+      a.out[kOutChunks] = n_chunks;
+      a.out[kOutRowBlocks] = row_blocks;
+      a.out[kOutStatus] = status;
+      a.out[kOutWaits] = waits;
+    }
+    stamp_end(a.out);
   }
 }
 
-template <bool kVec, bool kMedian>
-int launch_mega(const MegaArgs& a, int max_tiles, int device, int* info, cudaStream_t s) {
-  const void* kernel = reinterpret_cast<const void*>(blur_mega_kernel<kVec, kMedian>);
+// The launch's blocks: the compute blocks asked for (at least 1) and the
+// watcher, within 1 / `sharing` of the blocks the card holds at once.
+// info[] gets the grid, its cap and the co-resident blocks.
+template <typename Kernel>
+cudaError_t mega_grid(Kernel kernel, int blocks, int sharing, int device, int* info, int& grid) {
   int per_sm = 0, sms = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, blur_mega_kernel<kVec, kMedian>, kThreads, 0);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   const int coresident = per_sm * sms;
-  const int cap = coresident / kRegionsSharing > 0 ? coresident / kRegionsSharing : 1;
-  const int grid = max_tiles < cap ? (max_tiles > 0 ? max_tiles : 1) : cap;
+  const int cap = coresident / sharing;
+  if (cap < 2) return cudaErrorCooperativeLaunchTooLarge;
+  grid = (blocks < 1 ? 1 : blocks < cap - 1 ? blocks : cap - 1) + 1;
   info[0] = grid;
   info[1] = cap;
   info[2] = coresident;
+  return cudaSuccess;
+}
+
+template <bool kVec, bool kMedian>
+int launch_mega(const MegaArgs& a, int blocks, int device, int* info, cudaStream_t s) {
+  int grid = 0;
+  cudaError_t err =
+      mega_grid(blur_mega_kernel<kVec, kMedian>, blocks, kRegionsSharing, device, info, grid);
+  if (err != cudaSuccess) return (int)err;
   MegaArgs arg = a;
   void* params[] = {&arg};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), params, 0, s);
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(blur_mega_kernel<kVec, kMedian>),
+                                    dim3(grid), dim3(kThreads), params, 0, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// A probe of what an M1 chunk is made of (not a kernel of any path:
+// chip_smoke.py's [mega] launches it), at M1's geometry: the same
+// cooperative grid of compute blocks and the watcher block.  Thread 0 of
+// block 0 (terms 0-2) or of the watcher (3-4) stamps %globaltimer around
+// `reps` repetitions and writes the nanoseconds of all of them to out[k]:
+//   0 one pass's run of `run_blocks` row blocks (mega_run, ping into pong,
+//     the runs walking down the image), no sync between runs; one grid
+//     sync after the last
+//   1 a grid sync (cooperative_groups), every block
+//   2 the earlier design's chunk boundary: a grid sync, then block 0's
+//     thread 0 stores the progress word (volatile) and reads the flag
+//     (ld.acquire.sys) and stores the decision, a grid sync, every thread
+//     reads the decision
+//   3 the watcher's flag read (ld.relaxed.sys), each read's address
+//     hanging on the last value
+//   4 a hand-off round: every compute block's thread 0, after a block
+//     barrier, adds one to a device counter (red.release.gpu); the watcher
+//     spins on it (ld.acquire.gpu) until every block has, then publishes
+//     the round's tag, on which the blocks spin before the next round
+// `scratch` holds 64 zeroed ints; `out` the 5 terms (kernel.py PROBE_PARTS).
+
+struct ProbeArgs {
+  float* ping;
+  float* pong;
+  long long stride;
+  int n_rb, width, run_blocks, reps;
+  int zero;  // 0, opaque to the compiler: a read's address hangs on a value
+  const int* flag;
+  int* progress;
+  int* scratch;
+  long long* out;
+};
+
+template <bool kVec, bool kMedian>
+__global__ void __launch_bounds__(kThreads) blur_probe_kernel(const ProbeArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const int blocks = gridDim.x - 1;
+  const bool watcher = blockIdx.x == blocks, timer = blockIdx.x == 0 && threadIdx.x == 0;
+  int* counter = a.scratch;
+  int* tag = a.scratch + 32;
+  int* decision = a.scratch + 16;
+  int sink = 0;
+  // 0: runs
+  const int runs = a.n_rb / a.run_blocks;
+  grid.sync();
+  unsigned long long t0 = global_ns();
+  for (int i = 0; i < a.reps && !watcher; ++i) {
+    const int first = (i % runs) * a.run_blocks;
+    sink += mega_run<kVec, kMedian>(a.ping, a.pong, a.stride, first, a.run_blocks, a.width,
+                                    blocks);
+  }
+  grid.sync();
+  if (timer) a.out[0] = (long long)(global_ns() - t0);
+  // 1: grid syncs
+  t0 = global_ns();
+  for (int i = 0; i < a.reps; ++i) grid.sync();
+  if (timer) a.out[1] = (long long)(global_ns() - t0);
+  // 2: the earlier boundary
+  t0 = global_ns();
+  for (int i = 0; i < a.reps; ++i) {
+    grid.sync();
+    if (timer) {
+      *reinterpret_cast<volatile int*>(a.progress) = i + 1;
+      const int f = load_flag(a.flag);
+      *reinterpret_cast<volatile int*>(decision) = f + i;
+    }
+    grid.sync();
+    sink += *reinterpret_cast<volatile int*>(decision);
+  }
+  if (timer) a.out[2] = (long long)(global_ns() - t0);
+  // 3: the watcher's relaxed read
+  if (watcher && threadIdx.x == 0) {
+    int f = 0;
+    t0 = global_ns();
+    for (int i = 0; i < a.reps; ++i) f += issue_flag_read(a.flag + (f & a.zero));
+    a.out[3] = (long long)(global_ns() - t0);
+    sink += f;
+  }
+  grid.sync();
+  // 4: hand-off rounds
+  if (watcher) {
+    if (threadIdx.x == 0) {
+      t0 = global_ns();
+      for (int i = 1; i <= a.reps; ++i) {
+        wait_reports(counter, i * blocks);
+        st_relaxed(tag, i);
+      }
+      a.out[4] = (long long)(global_ns() - t0);
+    }
+  } else {
+    for (int i = 1; i <= a.reps; ++i) {
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        red_release(counter);
+        while (ld_relaxed(tag) < i) {
+        }
+      }
+    }
+  }
+  if (sink == 0x7fffffff) a.scratch[63] = sink;  // keeps the chains live
+}
+
+template <bool kVec, bool kMedian>
+int launch_probe(const ProbeArgs& a, int blocks, int device, int* info, cudaStream_t s) {
+  int grid = 0;
+  // alone on the card: its blocks at M1's count need not leave room
+  cudaError_t err = mega_grid(blur_probe_kernel<kVec, kMedian>, blocks, 1, device, info, grid);
+  if (err != cudaSuccess) return (int)err;
+  ProbeArgs arg = a;
+  void* params[] = {&arg};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(blur_probe_kernel<kVec, kMedian>),
+                                    dim3(grid), dim3(kThreads), params, 0, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -426,14 +702,15 @@ extern "C" int blur_rows(const float* src, long long src_stride, float* dst,
 // M1: the task's remaining chunk loop in one cooperative launch.  `ctx` is
 // the 36 host context words (ContextRecord.to_words), passed by value;
 // `flag` and `progress` are the mapped host words of csrc/preempt_flag.cu;
-// `out`
-// receives kOutWords words (zeroed by the caller); `info` receives the grid,
-// its cap and the co-resident blocks of the card.  Returns cudaError_t.
+// `blocks` the compute blocks asked for (kernels/blur/kernel.py mega_plan);
+// `out` receives kOutWords words (zeroed by the caller); `info` receives
+// the grid (the watcher included), its cap and the co-resident blocks of
+// the card.  Returns cudaError_t.
 extern "C" int blur_mega(const int* ctx, float* ping, float* pong, long long stride, int n_rb,
-                         int width, int iters, int budget, int max_chunks, int kind, int vec,
-                         const int* flag, int* progress, int* out, int device, int* info,
-                         void* stream) {
-  if (n_rb <= 0 || width <= 0 || iters < 0 || budget <= 0 || max_chunks <= 0 ||
+                         int width, int iters, int budget, int max_chunks, int blocks, int kind,
+                         int vec, const int* flag, int* progress, int* out,
+                         int device, int* info, void* stream) {
+  if (n_rb <= 0 || width <= 0 || iters < 0 || budget <= 0 || max_chunks <= 0 || blocks <= 0 ||
       (kind != 0 && kind != 1))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -451,16 +728,32 @@ extern "C" int blur_mega(const int* ctx, float* ping, float* pong, long long str
   a.flag = flag;
   a.progress = progress;
   a.out = out;
-  // the most tiles one pass's run can hold: a run has at most min(budget,
-  // n_rb) row blocks; more blocks than that would only wait at the syncs
-  const int col_blocks = ((width + 1) / 2 + kThreads - 1) / kThreads;
-  const int run_blocks = budget < n_rb ? budget : n_rb;
-  const int max_tiles = col_blocks * run_blocks * (kRowBlock / kMegaRows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec) {
-    return kind == 0 ? launch_mega<true, true>(a, max_tiles, device, info, s)
-                     : launch_mega<true, false>(a, max_tiles, device, info, s);
+    return kind == 0 ? launch_mega<true, true>(a, blocks, device, info, s)
+                     : launch_mega<true, false>(a, blocks, device, info, s);
   }
-  return kind == 0 ? launch_mega<false, true>(a, max_tiles, device, info, s)
-                   : launch_mega<false, false>(a, max_tiles, device, info, s);
+  return kind == 0 ? launch_mega<false, true>(a, blocks, device, info, s)
+                   : launch_mega<false, false>(a, blocks, device, info, s);
+}
+
+
+// The probe above over `run_blocks`-block runs of the padded images (ping
+// read, pong written; n_rb a multiple of run_blocks), on `blocks` compute
+// blocks and the watcher; `scratch` 64 zeroed ints; `out` 5 int64
+// nanoseconds; `info` as blur_mega's.  Returns cudaError_t.
+extern "C" int blur_latency_probe(float* ping, float* pong, long long stride, int n_rb, int width,
+                                  int run_blocks, int blocks, int kind, int vec, int reps,
+                                  const int* flag, int* progress, int* scratch, long long* out,
+                                  int device, int* info, void* stream) {
+  if (n_rb <= 0 || width <= 0 || run_blocks <= 0 || n_rb % run_blocks || blocks <= 0 ||
+      reps <= 0 || (kind != 0 && kind != 1) || !vec)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const ProbeArgs a = {ping, pong, stride, n_rb, width, run_blocks, reps, 0,
+                       flag, progress, scratch, out};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return kind == 0 ? launch_probe<true, true>(a, blocks, device, info, s)
+                   : launch_probe<true, false>(a, blocks, device, info, s);
 }

@@ -1,5 +1,5 @@
-// The context record and the flag read the persistent kernels share: M1
-// (blur.cu), M2/M3 (seq_lm.cu) and M4/M5 (attn_lm.cu).
+// The context record and the host-word accesses the persistent kernels
+// share: M1 (blur.cu), M2/M3 (seq_lm.cu) and M4/M5 (attn_lm.cu).
 
 #pragma once
 
@@ -49,6 +49,19 @@ __device__ __forceinline__ int load_flag(const int* p) {
   int v;
   asm volatile("ld.acquire.sys.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
   return v;
+}
+
+// A read of the host's flag word that goes to host memory every time and
+// stalls the issuing warp only where its value is used (M1, M2/M3).
+__device__ __forceinline__ int issue_flag_read(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.sys.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The chunks completed, to the host's progress word (M1, M2/M3).
+__device__ __forceinline__ void store_progress(int* p, int v) {
+  asm volatile("st.relaxed.sys.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
 }  // namespace mega

@@ -131,7 +131,9 @@ namespace {
 
 using mega::Ctx;
 using mega::kCtxWords;
+using mega::issue_flag_read;
 using mega::load_flag;
+using mega::store_progress;
 
 constexpr int kSlotPos = 0;                 // serving/kernels.py SLOT_POS
 constexpr int kOutChunks = kCtxWords;       // chunks this launch ran
@@ -162,19 +164,6 @@ struct SeqArgs {
   int* progress;             // the mapped host word of the chunks completed
   int* words;                // kOutWords device words
 };
-
-// A read of the host's flag word that goes to host memory every time and
-// stalls the issuing warp only where its value is used.
-__device__ __forceinline__ int issue_flag_read(const int* p) {
-  int v;
-  asm volatile("ld.relaxed.sys.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// The chunks completed, to the host's progress word.
-__device__ __forceinline__ void store_progress(int* p, int v) {
-  asm volatile("st.relaxed.sys.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
 
 // The step's injected term for the element at `pos`, tok * (2*pos + 1) +
 // pos * PHI + MIX_C, is tok + MIX_C + pos * (2*tok + PHI) mod 2^32: a lane

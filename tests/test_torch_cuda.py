@@ -159,10 +159,14 @@ def _mega_step(kind, mine, plain, ctx, iters, budget, flag, boundary):
     flag.write(boundary)
     before = K.ROW_BLOCKS[kind]
     launches = K.MEGA_LAUNCHES[kind]
-    words, n = K.blur_mega(ctx.to_words(), *mine, kind, iters, budget,
-                           flag).result()
+    launch = K.blur_mega(ctx.to_words(), *mine, kind, iters, budget, flag)
+    words, n = launch.result()
     assert K.MEGA_LAUNCHES[kind] == launches + 1
     assert flag.progress() == n  # the kernel's last boundary
+    # one grid-wide wait a pass end that another run of the launch follows
+    assert launch.waits == launch.plan.totals(n)[1]
+    start, end = launch.interval
+    assert 0 < start <= end
     rows = K.ROW_BLOCKS[kind] - before
     h, w = mine[0].shape[0] - 2, mine[0].shape[1] - 2
     got = make_megakernel(get_kernel(KERNELS[kind]))(
@@ -181,11 +185,13 @@ def _mega_step(kind, mine, plain, ctx, iters, budget, flag, boundary):
 
 @pytest.mark.parametrize("kind", ["median", "gaussian"])
 @pytest.mark.parametrize("size", [30, 256, 4096])
-@pytest.mark.parametrize("budget", [1, 2, 8])
+@pytest.mark.parametrize("budget", [1, 2, 3, 8])
 def test_cuda_mega_matches_plain_version(cuda_device, kind, size, budget):
     """A whole task in one launch of M1 against its plain version on the
     card: context words, chunks, images (median bitwise, gaussian within
-    1e-6), and exactly ``iters x H/32`` row blocks."""
+    1e-6), exactly ``iters x H/32`` row blocks, and one grid-wide wait a
+    pass end but the last (at size 30, budgets 3 and 8 cross a pass end
+    inside a chunk)."""
     mine, plain = _mega_images(cuda_device, size, seed=size + budget)
     flag = PreemptFlag(cuda_device)
     before = K.ROW_BLOCKS[kind]
@@ -194,6 +200,39 @@ def test_cuda_mega_matches_plain_version(cuda_device, kind, size, budget):
     assert ctx.done == 1
     n_rb = (mine[0].shape[0] - 2) // ROW_BLOCK
     assert K.ROW_BLOCKS[kind] - before == 2 * 3 * n_rb  # M1's + plain's
+    launch = K.blur_mega(ContextRecord.fresh().to_words(), *mine, kind, 3,
+                         budget, flag)
+    _, n = launch.result()
+    assert launch.waits == 2 and launch.plan.totals(n) == (3 * n_rb, 2)
+
+
+def test_cuda_mega_flag_write_lag(cuda_device):
+    """A flag written into a running M1 launch at budget 1 stops it at
+    most 2 chunks past the progress the host read right after the write,
+    and the images and context words then equal the plain version's
+    stopped at that boundary."""
+    iters, at_least = 200, 200
+    flag = PreemptFlag(cuda_device)
+    mine, plain = _mega_images(cuda_device, 4096, seed=13)
+    ctx = ContextRecord.fresh()
+    launch = K.blur_mega(ctx.to_words(), *mine, "median", iters, 1, flag)
+    deadline = time.perf_counter() + TIMEOUT
+    while flag.progress() < at_least:
+        assert time.perf_counter() < deadline and not launch.query()
+    flag.write(1)
+    at = flag.progress()
+    words, n = launch.result()
+    assert 0 <= n - at <= 2, (n, at)
+    assert n < iters * 128 and flag.progress() == n
+    flag.write(n)
+    want, _, want_n = make_megakernel(get_kernel("MedianBlur"))(
+        ctx, plain, task_ints(4096, 4096, iters), None, 1, flag).result()
+    torch.cuda.synchronize()
+    assert want_n == n
+    np.testing.assert_array_equal(words, want.to_words())
+    for a, b in zip(mine, plain):
+        assert torch.equal(a, b)
+    flag.clear()
 
 
 @pytest.mark.parametrize("kind", ["median", "gaussian"])
